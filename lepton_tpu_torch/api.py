@@ -1,0 +1,179 @@
+"""Top-level encode API: JPEG bytes -> .lep bytes on one CUDA card.
+
+Port of lepton_tpu.api.compress_tpu / batch_compress_tpu (:1023-1228) for
+baseline JPEGs and container version 1.  Pipeline: host parse + Huffman
+decode to coefficient planes and handoffs, thread splits, then phase A,
+symbolization and the VPX coder on the device
+(kernels/batch_encode.py), then the stop-byte rule, the mux and the .lep
+header on the host.  The output is byte-identical to the JAX package's.
+
+The entry points run on the card: device=None means "cuda", and without
+CUDA they raise.  Pass device="cpu" to run the plain PyTorch versions of
+the kernels (the tests do).
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from .container.format import LeptonHeader, write_container
+from .container.handoff import choose_num_threads, select_splits
+from .container.mux import mux_streams
+from .jpeg.decoder import decode_scans
+from .jpeg.imageinfo import ImageInfo, UnsupportedJpeg, image_info_from_header
+from .jpeg.parser import parse_jpeg
+from .kernels import batch_encode
+from .model.context import ColorTables
+from .model.tables import ARENA_SIZE
+
+
+class LeptonError(Exception):
+    pass
+
+
+def _device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("lepton_tpu_torch: no CUDA device (pass "
+                           "device='cpu' for the plain versions)")
+    return dev
+
+
+_template_cache = {}
+
+
+def _model_template_packed():
+    """Packed uint32 [ARENA_SIZE] start arena when LEPTON_COMPRESSION_MODEL
+    is set, else None (lepton_tpu.api._model_template_packed, :79-99).
+    Counts load-normalize to (1+c)>>1 and the prob byte ships as stored,
+    the state the host coders start every segment from
+    (load_probability_tables, model.cc:386-421; layout
+    c0<<16 | c1<<8 | prob)."""
+    path = os.environ.get("LEPTON_COMPRESSION_MODEL")
+    if not path:
+        return None
+    if path not in _template_cache:
+        _template_cache[path] = pack_model(
+            np.frombuffer(open(path, "rb").read(), dtype=np.uint8))
+    return _template_cache[path]
+
+
+def pack_model(raw: np.ndarray) -> np.ndarray:
+    """A raw model file's bytes (ARENA_SIZE x (false count, true count,
+    prob)) as the packed uint32 template of _model_template_packed."""
+    if raw.size != ARENA_SIZE * 3:
+        raise LeptonError("unexpected model file size")
+    arr = raw.reshape(-1, 3).astype(np.uint32)
+    return ((((1 + arr[:, 0]) >> 1) << 16)
+            | (((1 + arr[:, 1]) >> 1) << 8) | arr[:, 2])
+
+
+def _truncation_geometry(info: ImageInfo, dec) -> tuple:
+    """trunc_bcv / trunc_bc per component (set_block_count_dpos,
+    uncompressed_components.hh:168-179)."""
+    max_coded_heights = []
+    component_sizes = []
+    for c in range(info.cmpc):
+        ci = info.cmpnfo[c]
+        if dec.early_eof:
+            trunc_bc = dec.max_dpos[c] + 1
+            vertical = min(-(-trunc_bc // ci.bch), ci.bcv)
+            ratio = ci.bcv // info.mcuv
+            while vertical % ratio != 0 and vertical + 1 <= ci.bcv:
+                vertical += 1
+            max_coded_heights.append(vertical)
+            component_sizes.append(trunc_bc)
+        else:
+            max_coded_heights.append(ci.bcv)
+            component_sizes.append(ci.bc)
+    return max_coded_heights, component_sizes
+
+
+def _parse(jpeg_data: bytes):
+    """Host parse + Huffman decode: (parsed, info, dec)."""
+    parsed = parse_jpeg(jpeg_data)
+    info = image_info_from_header(parsed.hdrdata)
+    if info.cmpc > 3:
+        raise UnsupportedJpeg("4 colors unsupported")
+    return parsed, info, decode_scans(parsed, info)
+
+
+def _plan(dec, num_segments: int):
+    """(splits, num_threads) as compress_tpu chooses them."""
+    num_threads = choose_num_threads(
+        len(dec.handoffs),
+        dec.handoffs[-1].segment_size - dec.handoffs[0].segment_size,
+        num_segments, 1)
+    return select_splits(dec.handoffs, num_threads, False), num_threads
+
+
+def _describe(info, dec, splits) -> dict:
+    """The encode_images_device description of one image."""
+    mh, cs = _truncation_geometry(info, dec)
+    colors = [ColorTables(info.qtables[info.cmpnfo[c].qtable_index])
+              for c in range(info.cmpc)]
+    return dict(planes=list(dec.planes), color_tables=colors, mcuv=info.mcuv,
+                max_coded_heights=mh, component_sizes=cs,
+                splits_y=[th.luma_y_start for th in splits],
+                color_index=(lambda c: 0 if c == 0 else 1))
+
+
+def _container(parsed, dec, splits, num_threads, streams,
+               version: int = 1) -> bytes:
+    """The .lep bytes, header as in lepton_tpu.api (:1209-1228)."""
+    hdr = LeptonHeader()
+    hdr.version = version
+    hdr.mode = ord("Z")
+    hdr.num_threads = num_threads
+    hdr.original_size = parsed.jpgfilesize
+    hdr.hdrdata = parsed.hdrdata
+    hdr.padbit = dec.padbit
+    hdr.handoffs = splits
+    hdr.rst_cnt = parsed.rst_cnt
+    hdr.rst_err = parsed.rst_err
+    hdr.garbage = parsed.garbage if parsed.garbage else b"\xff\xd9"
+    hdr.early_eof = dec.early_eof
+    if dec.early_eof:
+        hdr.max_cmp, hdr.max_bpos = dec.max_cmp, dec.max_bpos
+        hdr.max_sah, hdr.max_dpos = dec.max_sah, dec.max_dpos
+    return write_container(hdr, mux_streams(streams, hdr.version))
+
+
+def batch_compress_device(jpeg_blobs, num_segments: int = 16,
+                          device=None, stats=None) -> list:
+    """Encode many baseline JPEGs on one card: every image's segments are
+    lanes of one coder kernel launch.  Returns the .lep bytes of each,
+    identical to compress_device on it alone and to the JAX package's
+    batch_compress_tpu.
+
+    stats: optional dict that receives the stage times and counts: parse_s
+    (host parse + Huffman), symbolize_s, assemble_s, coder_ms (CUDA events
+    on the card), finalize_s, mux_s, lanes, symbols, max_lane_symbols."""
+    stats = {} if stats is None else stats
+    dev = _device(device)
+    t = time.perf_counter()
+    metas, descs = [], []
+    for data in jpeg_blobs:
+        parsed, info, dec = _parse(data)
+        splits, num_threads = _plan(dec, num_segments)
+        descs.append(_describe(info, dec, splits))
+        metas.append((parsed, dec, splits, num_threads))
+    stats["parse_s"] = time.perf_counter() - t
+    all_streams = batch_encode.encode_images_device(
+        descs, template=_model_template_packed(), device=dev, stats=stats)
+    t = time.perf_counter()
+    out = [_container(parsed, dec, splits, num_threads, streams)
+           for (parsed, dec, splits, num_threads), streams
+           in zip(metas, all_streams)]
+    stats["mux_s"] = time.perf_counter() - t
+    return out
+
+
+def compress_device(jpeg_data: bytes, num_segments: int = 16,
+                    device=None) -> bytes:
+    """Encode one baseline JPEG on the card: the batch pipeline with a
+    one-image batch, as compress_tpu is."""
+    return batch_compress_device([jpeg_data], num_segments, device)[0]

@@ -1,0 +1,293 @@
+"""Symbolization: coefficients to (branch, bit) streams, all blocks at once.
+
+Port of lepton_tpu/kernels/symbolize.py::symbolize_slice (:103-309).  On
+encode every symbol the token codec emits is a pure function of the (fully
+known) coefficient planes: neighbor summaries, averages, Lakhani and DC
+predictions all derive from coefficients, and the serial bookkeeping of
+serialize_tokens (nz_left countdown, exponent unary, threshold so_far) is
+prefix-computable.  So serialize_tokens (reference
+src/vp8/encoder/encoder.cc:195-402, encode_one_edge :41-164) runs over all
+blocks of a slice at once, the zigzag position axis too.
+
+Layout: each block emits a fixed BLOCK_SLOTS-wide padded row of
+(branch_index, bit); invalid slots carry idx == PAD.  Flattening
+[rows, width, BLOCK_SLOTS] row-major and dropping the PAD slots gives the
+exact serial emission order.
+
+Slot budget per block (legal baseline JPEG coefficients are <= 10 bits;
+the reference aborts encode with COEFFICIENT_OUT_OF_RANGE otherwise,
+encoder.cc:124-126):
+
+  nz 7x7 tree         6
+  49 interior coefs   49 x (11 exp + 1 sign + 9 residual) = 1029
+  2 edges             2 x (3 tree + 7 x 21)               = 300
+  DC                  11 exp + 1 sign + 10 residual       = 22
+  total               1357
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..model.tables import TABLE_OFFSETS, TABLE_STRIDES
+from .contexts import bit_length, phase_a
+from .vpx_coder import PAD
+
+COEF_SLOTS = 21            # 11 exp + 1 sign + 9 residual
+DC_SLOTS = 22              # 11 exp + 1 sign + 10 residual
+EDGE_SLOTS = 3 + 7 * COEF_SLOTS
+BLOCK_SLOTS = 6 + 49 * COEF_SLOTS + 2 * EDGE_SLOTS + DC_SLOTS
+
+_OFF = {k: int(v) for k, v in TABLE_OFFSETS.items()}
+_STR = {k: tuple(int(s) for s in v) for k, v in TABLE_STRIDES.items()}
+_MAXE = C.MAX_EXPONENT
+_I32 = torch.int32
+_U8 = torch.uint8
+
+
+def _bsr_prior(prior: torch.Tensor) -> torch.Tensor:
+    """Bucketing of a prediction magnitude (blocks._bsr_best_prior):
+    bit_length of |prior| clamped to 1023."""
+    return bit_length(torch.clamp(torch.abs(prior), max=1023))
+
+
+def _exp_block(active, length, exp_slice):
+    """Unary exponent slots: bit (length != i) at exp_slice + i for
+    i = 0..min(length, MAX_EXPONENT-1) (encoder.cc put-with-terminator).
+    active/length/exp_slice: [...]; returns idx/bit [..., MAX_EXPONENT]."""
+    i = torch.arange(_MAXE, dtype=_I32, device=length.device)
+    valid = active[..., None] & (i <= length[..., None])
+    idx = torch.where(valid, exp_slice[..., None] + i, PAD)
+    bit = (length[..., None] != i).to(_U8)
+    return idx, bit
+
+
+def _res_block(active, length, abs_coef, res_slice, nslots):
+    """Plain residual bits: slot j holds bit i = length-2-j at
+    res_slice + i (encoder.cc:276-283 noise-floor bits)."""
+    j = torch.arange(nslots, dtype=_I32, device=length.device)
+    i = length[..., None] - 2 - j
+    valid = active[..., None] & (i >= 0)
+    safe_i = torch.clamp(i, min=0)
+    idx = torch.where(valid, res_slice[..., None] + safe_i, PAD)
+    bit = ((abs_coef[..., None] >> safe_i) & 1).to(_U8)
+    return idx, bit
+
+
+def _tree_bits(value, nbits, base, stride):
+    """MSB-first binary-tree coding: bit (value>>i)&1 at
+    base + i*stride + (value >> (i+1)) for i = nbits-1..0
+    (encoder.cc:205-213 so_far accumulation)."""
+    idxs, bits = [], []
+    for i in range(nbits - 1, -1, -1):
+        idxs.append(base + i * stride + (value >> (i + 1)))
+        bits.append(((value >> i) & 1).to(_U8))
+    return torch.stack(idxs, dim=-1), torch.stack(bits, dim=-1)
+
+
+def symbolize_slice(coefs: torch.Tensor, ci: int, quant: torch.Tensor,
+                    icos_x: torch.Tensor, icos_y: torch.Tensor,
+                    min_noise_threshold: torch.Tensor,
+                    row_block_offset: int, size_limit: int,
+                    row_has_above: torch.Tensor = None):
+    """Symbolize one component plane (or a slice of its rows).
+
+    coefs: int16 [R, W, 64] raster coefficients.
+    ci: color index (0 luma / 1 chroma).
+    quant/icos_x/icos_y/min_noise_threshold: ColorTables arrays, int32 [64]
+    on the device of coefs.
+    row_has_above: bool [R]; False rows get no above-context (segment-top
+    rows -- the is_top_row reset of lepton_codec.hh:173-181).  Default:
+    every row but row 0.
+    row_block_offset/size_limit: blocks with row_block_offset + flat_index
+    >= size_limit emit nothing (early-EOF truncation bookkeeping); a slice
+    of rows passes its first block's plane index as row_block_offset.
+
+    Returns (idx int32 [R, W, BLOCK_SLOTS], bit uint8 same): flattened
+    row-major this is the exact serial emission order.
+    """
+    R, W = coefs.shape[0], coefs.shape[1]
+    dev = coefs.device
+    pa = phase_a(coefs, quant, icos_x, icos_y, row_has_above)
+    coefs32 = coefs.to(_I32)                             # [R, W, 64]
+    nz_bin_lut = torch.as_tensor(C.NONZERO_TO_BIN, dtype=torch.int64,
+                                 device=dev)
+    unzig = torch.as_tensor(C.UNZIGZAG49, dtype=torch.int64, device=dev)
+    unzig32 = unzig.to(_I32)
+    has_left = (torch.arange(W, device=dev) > 0)[None, :]
+    if row_has_above is None:
+        has_above = (torch.arange(R, device=dev) > 0)[:, None]
+    else:
+        has_above = row_has_above.to(device=dev, dtype=torch.bool)[:, None]
+
+    flat = torch.arange(R * W, dtype=torch.int64, device=dev).reshape(R, W)
+    block_live = (row_block_offset + flat) < size_limit
+
+    nz7 = pa["nz7x7"].to(_I32)                           # [R, W]
+    aavrg = pa["aavrg"]                                  # [R, W, 64]
+    lak = pa["lak"]                                      # [R, W, 14]
+
+    pieces_idx = []
+    pieces_bit = []
+
+    def emit(idx, bit):
+        """idx/bit: [R, W, k] appended in serial order."""
+        pieces_idx.append(torch.where(block_live[..., None], idx, PAD))
+        pieces_bit.append(bit)
+
+    # ---- 7x7 nonzero count, 6-bit binary tree (encoder.cc:200-213)
+    nz_left_blk = torch.zeros_like(nz7)
+    nz_left_blk[:, 1:] = nz7[:, :-1]
+    nz_above_blk = torch.zeros_like(nz7)
+    nz_above_blk[1:] = nz7[:-1]
+    nz_ctx = torch.where(
+        has_left & has_above, (nz_above_blk + nz_left_blk + 2) // 4,
+        torch.where(has_above, (nz_above_blk + 1) // 2,
+                    torch.where(has_left, (nz_left_blk + 1) // 2, 0)))
+    s70, s71, s72, _ = _STR["nz_7x7"]
+    nz_base = (_OFF["nz_7x7"] + ci * s70
+               + nz_bin_lut[nz_ctx.long()].to(_I32) * s71)
+    emit(*_tree_bits(nz7, 6, nz_base, s72))
+
+    # ---- 49 interior coefficients, zigzag axis vectorized
+    # (encoder.cc:216-285): nz_left via exclusive prefix count, the
+    # "while nz_left" break is the active mask.
+    e70, e71, e72, e73, _ = _STR["exp_7x7"]
+    r70, r71, r72, _ = _STR["residual_noise"]
+    res_base = _OFF["residual_noise"] + ci * r70
+    sg0, sg1, _ = _STR["sign"]
+    sign_base = _OFF["sign"] + ci * sg0
+
+    czz = coefs32[..., unzig]                            # [R, W, 49]
+    azz = torch.abs(czz)
+    nonzero = (czz != 0).to(_I32)
+    prefix = (torch.cumsum(nonzero, dim=-1) - nonzero).to(_I32)  # exclusive
+    nz_left = nz7[..., None] - prefix                    # [R, W, 49]
+    active = nz_left > 0
+    length = bit_length(azz)
+    bsr = _bsr_prior(aavrg[..., unzig])
+    nnzb = nz_bin_lut[torch.clamp(nz_left, 0, 49).long()].to(_I32)
+    zz_idx = torch.arange(49, dtype=_I32, device=dev)
+    exp_slice = (_OFF["exp_7x7"] + ci * e70 + nnzb * e71
+                 + zz_idx * e72 + bsr * e73)
+    exp_i, exp_b = _exp_block(active, length, exp_slice)  # [R,W,49,11]
+    sign_valid = active & (length > 0)
+    sign_i = torch.where(sign_valid, sign_base, PAD)[..., None].to(_I32)
+    sign_b = (czz >= 0).to(_U8)[..., None]
+    res_slice = res_base + unzig32 * r71 + nnzb * r72
+    res_i, res_b = _res_block(active, length, azz, res_slice, 9)
+    interior_i = torch.cat([exp_i, sign_i, res_i], dim=-1)
+    interior_b = torch.cat([exp_b, sign_b, res_b], dim=-1)
+    emit(interior_i.reshape(R, W, 49 * COEF_SLOTS),
+         interior_b.reshape(R, W, 49 * COEF_SLOTS))
+    del exp_i, exp_b, res_i, res_b, interior_i, interior_b
+
+    nzm = czz != 0
+    eob_x = torch.where(nzm, unzig32 & 7, 0).amax(-1)
+    eob_y = torch.where(nzm, unzig32 >> 3, 0).amax(-1)
+
+    # ---- edges: horizontal (coords 1..7) then vertical (8..56)
+    # (encoder.cc:166-184, encode_one_edge :41-164)
+    ex0, ex1, ex2, ex3, _ = _STR["exp_x"]
+    expx_base = _OFF["exp_x"] + ci * ex0
+    rt0, rt1, rt2, _ = _STR["residual_thresh"]
+    rt_base = _OFF["residual_thresh"] + ci * rt0
+    cap = (1 << C.RESIDUAL_NOISE_FLOOR) - 1
+    mnt_all = min_noise_threshold.to(device=dev, dtype=_I32)
+
+    for horizontal in (True, False):
+        if horizontal:
+            coords_np = np.arange(1, 8)
+            zig15, tbl, est_eob, lak_lane0 = 0, "nz_8x1", eob_x, 0
+        else:
+            coords_np = np.arange(8, 64, 8)
+            zig15, tbl, est_eob, lak_lane0 = 7, "nz_1x8", eob_y, 7
+        coords = torch.as_tensor(coords_np, dtype=torch.int64, device=dev)
+        coords32 = coords.to(_I32)
+        ce = coefs32[..., coords]                        # [R, W, 7]
+        ae = torch.abs(ce)
+        nonzero_e = (ce != 0).to(_I32)
+        cnt = nonzero_e.sum(-1).to(_I32)                 # [R, W]
+        n0, n1, n2, n3, _ = _STR[tbl]
+        nz_slice = (_OFF[tbl] + ci * n0 + est_eob * n1
+                    + ((nz7 + 3) // 7) * n2)
+        emit(*_tree_bits(cnt, 3, nz_slice, n3))
+
+        eprefix = (torch.cumsum(nonzero_e, dim=-1) - nonzero_e).to(_I32)
+        remaining = cnt[..., None] - eprefix             # [R, W, 7]
+        active_e = remaining > 0
+        length_e = bit_length(ae)
+        bp = lak[..., lak_lane0:lak_lane0 + 7]
+        bsr_e = _bsr_prior(bp)
+        lane = torch.arange(7, dtype=_I32, device=dev)
+        exp_slice_e = (expx_base + remaining * ex1
+                       + (zig15 + lane) * ex2 + bsr_e * ex3)
+        exp_i, exp_b = _exp_block(active_e, length_e, exp_slice_e)
+        ctx1 = torch.where(bp == 0, 0, torch.where(bp > 0, 1, 2))
+        sign_valid = active_e & (ce != 0)
+        sign_i = torch.where(sign_valid, sign_base + ctx1 * sg1 + bsr_e,
+                             PAD)[..., None].to(_I32)
+        sign_b = (ce >= 0).to(_U8)[..., None]
+
+        # residual: threshold-contexted bits above the per-coord noise
+        # floor (serial so_far chain, <= 9 bits), then plain noise bits
+        # (encoder.cc:131-160)
+        mt = mnt_all[coords]
+        t1 = torch.clamp(torch.abs(bp) >> mt, max=255)
+        t2 = torch.clamp(length_e - mt, max=C.RESIDUAL_NOISE_FLOOR)
+        thresh_slice = rt_base + t1 * rt1 + t2 * rt2
+        res_slice_e = res_base + coords32 * r71 + remaining * r72
+        so_far = torch.ones_like(remaining)
+        res_is, res_bs = [], []
+        for j in range(9):
+            i = length_e - 2 - j
+            valid = active_e & (i >= 0)
+            safe_i = torch.clamp(i, min=0)
+            bit = (ae >> safe_i) & 1
+            is_thresh = i >= mt
+            idx = torch.where(is_thresh, thresh_slice + so_far,
+                              res_slice_e + safe_i)
+            res_is.append(torch.where(valid, idx, PAD))
+            res_bs.append(bit.to(_U8))
+            so_far = torch.where(valid & is_thresh,
+                                 torch.clamp((so_far << 1) | bit, max=cap),
+                                 so_far)
+        res_i = torch.stack(res_is, dim=-1)
+        res_b = torch.stack(res_bs, dim=-1)
+        edge_i = torch.cat([exp_i, sign_i, res_i], dim=-1)
+        edge_b = torch.cat([exp_b, sign_b, res_b], dim=-1)
+        emit(edge_i.reshape(R, W, 7 * COEF_SLOTS),
+             edge_b.reshape(R, W, 7 * COEF_SLOTS))
+
+    # ---- DC last (encoder.cc:293-364): delta vs the pixel-domain
+    # prediction, wrapped into [-1024, 1024] (model.hh:823-832)
+    dc = coefs32[..., 0]
+    delta = dc - pa["dc_pred"]
+    max_value = 1 << (_MAXE - 1)
+    adj = 2 * max_value + 1
+    delta = torch.where(delta < -max_value, delta + adj, delta)
+    delta = torch.where(delta > max_value, delta - adj, delta)
+    a_dc = torch.abs(delta)
+    length_dc = bit_length(a_dc)
+    lm = torch.clamp(bit_length(torch.abs(pa["uncertainty"])),
+                     max=C.NUMERIC_LENGTH_MAX - 1)
+    lo = torch.clamp(bit_length(torch.abs(pa["uncertainty2"])), max=16)
+    ed0, ed1, _ = _STR["exp_dc"]
+    exp_slice_dc = _OFF["exp_dc"] + lm * ed0 + lo * ed1
+    always = torch.ones((R, W), dtype=torch.bool, device=dev)
+    exp_i, exp_b = _exp_block(always, length_dc, exp_slice_dc)
+    unc2 = pa["uncertainty2"]
+    sctx = torch.where(unc2 < 0, 1, torch.where(unc2 == 0, 3, 2))
+    sign_i = torch.where(length_dc > 0, sign_base + sctx,
+                         PAD)[..., None].to(_I32)
+    sign_b = (delta >= 0).to(_U8)[..., None]
+    rd0, _ = _STR["residual_noise_dc"]
+    res_slice_dc = _OFF["residual_noise_dc"] + lm * rd0
+    res_i, res_b = _res_block(always, length_dc, a_dc, res_slice_dc, 10)
+    emit(torch.cat([exp_i, sign_i, res_i], dim=-1),
+         torch.cat([exp_b, sign_b, res_b], dim=-1))
+
+    idx = torch.cat(pieces_idx, dim=-1).to(_I32)         # [R, W, BLOCK_SLOTS]
+    bit = torch.cat(pieces_bit, dim=-1).to(_U8)
+    return idx, bit

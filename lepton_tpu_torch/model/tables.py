@@ -1,0 +1,65 @@
+"""The adaptive probability model: ~720k branches in one flat arena.
+
+Copy of the table layout of lepton_tpu/model/tables.py (struct Model,
+reference src/vp8/model/model.hh:60-156): the same table order, offsets and
+strides, so a branch index means the same branch in both packages.  Adds
+arena_from_template, the coder kernel's start state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import constants as C
+
+# (name, shape) in struct declaration order
+TABLE_SHAPES = [
+    ("nz_7x7", (C.BLOCK_TYPES, 26, 6, 32)),
+    ("nz_1x8", (C.BLOCK_TYPES, 8, 8, 3, 4)),
+    ("nz_8x1", (C.BLOCK_TYPES, 8, 8, 3, 4)),
+    ("residual_noise", (C.BLOCK_TYPES, C.COEF_BANDS, 10, C.COEF_BITS)),
+    ("residual_noise_dc", (C.NUMERIC_LENGTH_MAX, C.COEF_BITS)),
+    ("residual_thresh", (C.BLOCK_TYPES, 1 << (1 + C.RESIDUAL_NOISE_FLOOR),
+                         1 + C.RESIDUAL_NOISE_FLOOR, 1 << C.RESIDUAL_NOISE_FLOOR)),
+    ("exp_7x7", (C.BLOCK_TYPES, C.NUM_NONZEROS_BINS, 49,
+                 C.NUMERIC_LENGTH_MAX, C.MAX_EXPONENT)),
+    ("exp_x", (C.BLOCK_TYPES, C.NUM_NONZEROS_BINS, 15,
+               C.NUMERIC_LENGTH_MAX, C.MAX_EXPONENT)),
+    ("exp_dc", (C.NUMERIC_LENGTH_MAX, 17, C.MAX_EXPONENT)),
+    ("sign", (C.BLOCK_TYPES, 4, C.NUMERIC_LENGTH_MAX)),
+]
+
+TABLE_OFFSETS = {}
+_off = 0
+for _name, _shape in TABLE_SHAPES:
+    TABLE_OFFSETS[_name] = _off
+    _off += int(np.prod(_shape))
+ARENA_SIZE = _off
+del _off, _name, _shape
+
+TABLE_STRIDES = {
+    name: tuple(int(s) for s in
+                np.cumprod((shape[1:] + (1,))[::-1])[::-1])
+    for name, shape in TABLE_SHAPES
+}
+
+# one branch of the coder arena: fc | tc << 8 | prob << 16 (int32)
+IDENTITY_BRANCH = 1 | (1 << 8) | (128 << 16)
+
+
+def arena_from_template(packed: np.ndarray) -> torch.Tensor:
+    """The coder kernel's start arena from a trained-model template.
+
+    packed: uint32 [ARENA_SIZE] in the layout of
+    lepton_tpu.api._model_template_packed, c0 << 16 | c1 << 8 | prob
+    (false count, true count, cached probability byte).  Returns int32
+    [ARENA_SIZE] on the CPU in the coder's layout fc | tc << 8 | prob << 16:
+    the two layouts hold the same three bytes in opposite order."""
+    p = np.asarray(packed, dtype=np.uint32)
+    if p.shape != (ARENA_SIZE,):
+        raise ValueError(f"template must be uint32 [{ARENA_SIZE}]")
+    fc = (p >> 16) & 0xFF
+    tc = (p >> 8) & 0xFF
+    prob = p & 0xFF
+    arena = (fc | (tc << 8) | (prob << 16)).astype(np.int32)
+    return torch.from_numpy(arena)
