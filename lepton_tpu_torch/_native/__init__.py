@@ -1,8 +1,9 @@
 """ctypes bridge to the native JPEG scan decoder (leptonc.c).
 
 The port's own copy of the parts of lepton_tpu/_native/__init__.py that the
-encode path needs: build_hscan, build_huff_tables and
-native_decode_baseline_scan.  The library is built with gcc at first use
+encode and decode paths need: build_hscan, build_huff_tables,
+native_decode_baseline_scan (Huffman scan decode) and native_recode_rows
+(Huffman re-emit, :300-332).  The library is built with gcc at first use
 into the build/ directory beside the package (git ignores it).  It keeps a
 12 MP scan decode far below the pure-Python loop's time.
 """
@@ -69,6 +70,10 @@ def get_lib():
             lib.lepton_decode_baseline_scan.argtypes = [
                 p, ctypes.c_int64, p, p, p, p, p, p, i, p, p, p, p]
             lib.lepton_decode_baseline_scan.restype = i
+            i64 = ctypes.c_int64
+            lib.lepton_recode_rows.argtypes = [
+                p, p, p, i, i, i, i, p, i, p, i, i, p, i64, i64, p]
+            lib.lepton_recode_rows.restype = i64
             _lib = lib
     return _lib
 
@@ -171,3 +176,37 @@ def native_decode_baseline_scan(info, huffdata: bytes, bitpos: int,
         ctypes.byref(padbit_c), max_dpos.ctypes.data_as(ctypes.c_void_p))
     return (status, bitpos_c.value, handoffs[:nhandoffs.value],
             padbit_c.value, max_dpos.tolist())
+
+
+def native_recode_rows(info, planes, start_row: int, end_row: int,
+                       overhang_byte: int, num_overhang_bits: int,
+                       lastdc, padbit: int, rst_cnt, rst_cnt_set: bool,
+                       out: np.ndarray, out_bound: int, out_pos: int,
+                       tables=None, sc=None):
+    """Re-emit MCU rows [start_row, end_row) of `planes` (int16 [H, W*64]
+    each) as Huffman scan bytes into `out` from out_pos, bounded by
+    out_bound.  Returns (new_out_pos, overhang_byte, num_overhang_bits,
+    lastdc)."""
+    lib = get_lib()
+    if sc is None:
+        sc = build_hscan(info)
+    if tables is None:
+        tables = build_huff_tables(info)
+    n = len(planes)
+    plane_ptrs = (ctypes.POINTER(ctypes.c_int16) * n)(*[
+        p.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for p in planes])
+    lastdc_c = np.asarray(list(lastdc) + [0] * (4 - len(lastdc)),
+                          dtype=np.int32)
+    rst = np.ascontiguousarray(rst_cnt or [0], dtype=np.uint32)
+    overhang_out = np.zeros(2, dtype=np.int32)
+    newpos = lib.lepton_recode_rows(
+        ctypes.byref(sc), tables, plane_ptrs, start_row, end_row,
+        overhang_byte, num_overhang_bits,
+        lastdc_c.ctypes.data_as(ctypes.c_void_p), padbit,
+        rst.ctypes.data_as(ctypes.c_void_p), len(rst_cnt or []),
+        int(rst_cnt_set), out.ctypes.data_as(ctypes.c_void_p),
+        out_bound, out_pos, overhang_out.ctypes.data_as(ctypes.c_void_p))
+    if newpos < 0:
+        raise RuntimeError("native recode failed")
+    return (int(newpos), int(overhang_out[0]), int(overhang_out[1]),
+            lastdc_c.tolist())

@@ -1,11 +1,19 @@
-"""Top-level encode API: JPEG bytes -> .lep bytes on one CUDA card.
+"""Top-level API: JPEG bytes <-> .lep bytes on one CUDA card.
 
-Port of lepton_tpu.api.compress_tpu / batch_compress_tpu (:1023-1228) for
-baseline JPEGs and container version 1.  Pipeline: host parse + Huffman
-decode to coefficient planes and handoffs, thread splits, then phase A,
-symbolization and the VPX coder on the device
+Encode: port of lepton_tpu.api.compress_tpu / batch_compress_tpu
+(:1023-1228) for baseline JPEGs and container version 1.  Pipeline: host
+parse + Huffman decode to coefficient planes and handoffs, thread splits,
+then phase A, symbolization and the VPX coder on the device
 (kernels/batch_encode.py), then the stop-byte rule, the mux and the .lep
 header on the host.  The output is byte-identical to the JAX package's.
+
+Decode: port of lepton_tpu.api.decompress_tpu / batch_decompress_tpu
+(:427-589) for mode-Z containers of version 1.  Pipeline: host container
+read and demux, one launch of the VPX token decoder for every segment of
+every request (kernels/vpx_decoder.py), one copy of the planes to the host,
+then the Huffman re-emit (jpeg/recoder.py).  The output is the original
+JPEG, byte for byte.  A container the device path does not cover raises
+LeptonError; there is no host fallback.
 
 The entry points run on the card: device=None means "cuda", and without
 CUDA they raise.  Pass device="cpu" to run the plain PyTorch versions of
@@ -19,15 +27,18 @@ import time
 import numpy as np
 import torch
 
-from .container.format import LeptonHeader, write_container
+from . import constants as C
+from .container.format import (ContainerError, LeptonHeader, read_container,
+                               write_container)
 from .container.handoff import choose_num_threads, select_splits
-from .container.mux import mux_streams
-from .jpeg.decoder import decode_scans
+from .container.mux import MuxReader, mux_streams
+from .jpeg.decoder import ThreadHandoff, decode_scans
 from .jpeg.imageinfo import ImageInfo, UnsupportedJpeg, image_info_from_header
 from .jpeg.parser import parse_jpeg
-from .kernels import batch_encode
+from .jpeg.recoder import recode_baseline_jpeg
+from .kernels import batch_encode, vpx_decoder
 from .model.context import ColorTables
-from .model.tables import ARENA_SIZE
+from .model.tables import ARENA_SIZE, arena_from_template
 
 
 class LeptonError(Exception):
@@ -71,15 +82,16 @@ def pack_model(raw: np.ndarray) -> np.ndarray:
             | (((1 + arr[:, 1]) >> 1) << 8) | arr[:, 2])
 
 
-def _truncation_geometry(info: ImageInfo, dec) -> tuple:
+def _truncation_geometry(info: ImageInfo, hdr_or_dec) -> tuple:
     """trunc_bcv / trunc_bc per component (set_block_count_dpos,
-    uncompressed_components.hh:168-179)."""
+    uncompressed_components.hh:168-179), from a scan decode's result or a
+    container header (both carry early_eof and max_dpos)."""
     max_coded_heights = []
     component_sizes = []
     for c in range(info.cmpc):
         ci = info.cmpnfo[c]
-        if dec.early_eof:
-            trunc_bc = dec.max_dpos[c] + 1
+        if hdr_or_dec.early_eof:
+            trunc_bc = hdr_or_dec.max_dpos[c] + 1
             vertical = min(-(-trunc_bc // ci.bch), ci.bcv)
             ratio = ci.bcv // info.mcuv
             while vertical % ratio != 0 and vertical + 1 <= ci.bcv:
@@ -177,3 +189,136 @@ def compress_device(jpeg_data: bytes, num_segments: int = 16,
     """Encode one baseline JPEG on the card: the batch pipeline with a
     one-image batch, as compress_tpu is."""
     return batch_compress_device([jpeg_data], num_segments, device)[0]
+
+
+def _decode_request(lep_data: bytes, i: int = 0):
+    """Read one container into the decoder's request dict (streams,
+    geometry, colour tables) and the re-emit's inputs, as
+    lepton_tpu.api._tpu_decode_request (:427-462) does, legacy files
+    without an 'H' record included.  Returns (req, hdr, handoffs).  Raises
+    LeptonError naming request i for what the device path does not cover:
+    mode Y, mode X, version 2 and above (brotli headers), 4 colours."""
+    if len(lep_data) < 28 or lep_data[:2] not in (C.LEPTON_HEADER,
+                                                  C.UJG_HEADER):
+        raise LeptonError(f"request {i}: not a .lep container")
+    version, mode = lep_data[2], lep_data[3]
+    if mode == ord("Y"):
+        raise LeptonError(f"request {i}: mode-Y container (host decoder "
+                          "only)")
+    if mode == ord("X"):
+        raise LeptonError(f"request {i}: mode-X (progressive) container is "
+                          "not ported")
+    if version >= 2:
+        raise LeptonError(f"request {i}: container v{version} is not ported "
+                          "(brotli header)")
+    try:
+        hdr, mux_region = read_container(lep_data)
+    except ContainerError as e:
+        raise LeptonError(f"request {i}: {e}") from e
+    if hdr.mode != ord("Z"):
+        raise LeptonError(f"request {i}: unknown mode {hdr.mode}")
+    info = image_info_from_header(hdr.hdrdata, allow_34=True)
+    if info.cmpc > 3:
+        raise LeptonError(f"request {i}: 4 colours are not ported")
+    max_heights, comp_sizes = _truncation_geometry(info, hdr)
+    handoffs = hdr.handoffs
+    if not handoffs:
+        # legacy file: a mark byte and mark - 1 LE16 luma splits precede
+        # the mux streams
+        mark = mux_region[0]
+        if mark == 0:
+            raise LeptonError(f"request {i}: legacy file with zero threads")
+        splits = [int.from_bytes(mux_region[1 + 2 * k:3 + 2 * k], "little")
+                  for k in range(mark - 1)]
+        mux_region = mux_region[1 + 2 * (mark - 1):]
+        bounds = [0] + splits + [info.cmpnfo[0].bcv]
+        handoffs = [
+            ThreadHandoff(luma_y_start=bounds[k], luma_y_end=bounds[k + 1],
+                          num_overhang_bits=ThreadHandoff.LEGACY_OVERHANG_BITS)
+            for k in range(mark)]
+    handoffs[-1].luma_y_end = info.cmpnfo[0].bcv
+    demux = MuxReader(mux_region)
+    req = dict(streams=[bytes(demux.buffers[k]) for k in range(len(handoffs))],
+               plane_shapes=[(info.cmpnfo[c].bcv, info.cmpnfo[c].bch)
+                             for c in range(info.cmpc)],
+               color_tables=[ColorTables(info.qtables[
+                   info.cmpnfo[c].qtable_index]) for c in range(info.cmpc)],
+               mcuv=info.mcuv, max_coded_heights=max_heights,
+               component_sizes=comp_sizes,
+               splits_y=[th.luma_y_start for th in handoffs],
+               color_index=(lambda c: 0 if c == 0 else 1))
+    return req, hdr, handoffs
+
+
+def _reemit(hdr, handoffs, planes) -> bytes:
+    """Host re-emit of the baseline Huffman scan from decoded planes
+    (lepton_tpu.api._tpu_decode_reemit, :465-478)."""
+    info = image_info_from_header(hdr.hdrdata, allow_34=True)
+    return recode_baseline_jpeg(
+        hdr.hdrdata, planes, handoffs, info, hdr.padbit,
+        hdr.rst_cnt, hdr.rst_cnt_set, hdr.rst_err, hdr.garbage,
+        hdr.original_size, hdr.prefix_garbage, hdr.embedded_jpeg)
+
+
+def batch_decompress_device(leps, device=None, stats=None) -> list:
+    """Decode many .lep containers on one card: every segment of every
+    request is a lane of one decoder kernel launch, with each lane's
+    colour tables routed to its own request.  Returns the original JPEG
+    bytes of each, identical to decompress_device on it alone and to the
+    JAX package's batch_decompress_tpu.
+
+    Every request is read before anything is launched; one the device path
+    does not cover, or one whose decode flags a stream inconsistency,
+    raises LeptonError naming it.
+
+    stats: optional dict that receives the stage times and counts: read_s
+    (container read and demux), plan_s (lane plan and upload), decoder_ms
+    (CUDA events on the card), d2h_s, recode_s, lanes, max_lane_blocks."""
+    stats = {} if stats is None else stats
+    dev = _device(device)
+    t = time.perf_counter()
+    reqs = [_decode_request(lep, i) for i, lep in enumerate(leps)]
+    stats["read_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    plan = vpx_decoder.plan_decode([req for req, _, _ in reqs])
+    inputs = plan.to(dev)
+    tpl = _model_template_packed()
+    if tpl is not None:
+        tpl = arena_from_template(tpl).to(dev)
+    batch_encode._sync(dev)
+    stats["plan_s"] = time.perf_counter() - t
+    stats["lanes"] = len(plan.lane_request)
+    stats["max_lane_blocks"] = int(np.bincount(
+        np.repeat(np.arange(len(plan.lanes)), plan.lanes[:, 1]),
+        weights=plan.rows[:, 2], minlength=1).max())
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        coef, err = vpx_decoder.decode_lanes(**inputs, template=tpl)
+        end.record()
+        end.synchronize()
+        stats["decoder_ms"] = start.elapsed_time(end)
+    else:
+        t = time.perf_counter()
+        coef, err = vpx_decoder.decode_lanes(**inputs, template=tpl)
+        stats["decoder_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    coef, err = coef.cpu().numpy(), err.cpu().numpy()
+    stats["d2h_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out = []
+    for i, ((planes, bad), (_, hdr, handoffs)) in enumerate(
+            zip(vpx_decoder.split_planes(plan, coef, err != 0), reqs)):
+        if bad.any():
+            raise LeptonError(f"request {i}: lepton stream inconsistent "
+                              "(device decode)")
+        out.append(_reemit(hdr, handoffs, planes))
+    stats["recode_s"] = time.perf_counter() - t
+    return out
+
+
+def decompress_device(lep_data: bytes, device=None) -> bytes:
+    """Decode one .lep on the card: the batch pipeline with a one-request
+    batch.  Bit-exact with the host decompress and decompress_tpu."""
+    return batch_decompress_device([lep_data], device)[0]

@@ -1,6 +1,6 @@
 """ThreadHandoff serialization + thread-split selection.
 
-Copy of the encode half of lepton_tpu/container/handoff.py (reference
+Copy of lepton_tpu/container/handoff.py (reference
 src/lepton/thread_handoff.{hh,cc} 16-byte records, and the split selection
 of write_ujpg, jpgcoder.cc:3861-3945).
 """
@@ -9,6 +9,8 @@ from __future__ import annotations
 from typing import List
 
 from ..jpeg.decoder import ThreadHandoff
+
+BYTES_PER_HANDOFF = 16
 
 
 def serialize_handoffs(handoffs: List[ThreadHandoff]) -> bytes:
@@ -24,6 +26,33 @@ def serialize_handoffs(handoffs: List[ThreadHandoff]) -> bytes:
             dc = th.last_dc[i] if i < len(th.last_dc) else 0
             out += (dc & 0xFFFF).to_bytes(2, "little")
     return bytes(out)
+
+
+def deserialize_handoffs(data: bytes) -> List[ThreadHandoff]:
+    if len(data) < 2 or data[0] != ord("H"):
+        raise ValueError("bad handoff record")
+    num = data[1]
+    if len(data) - 2 < BYTES_PER_HANDOFF * num:
+        raise ValueError("short handoff record")
+    out = []
+    p = 2
+    for _ in range(num):
+        th = ThreadHandoff()
+        th.luma_y_start = int.from_bytes(data[p:p + 2], "little")
+        th.segment_size = int.from_bytes(data[p + 2:p + 6], "little")
+        th.overhang_byte = data[p + 6]
+        th.num_overhang_bits = data[p + 7]
+        th.last_dc = []
+        for i in range(4):
+            dc = int.from_bytes(data[p + 8 + 2 * i:p + 10 + 2 * i], "little")
+            if dc >= 32768:
+                dc -= 65536
+            th.last_dc.append(dc)
+        out.append(th)
+        p += BYTES_PER_HANDOFF
+    for i in range(1, len(out)):
+        out[i - 1].luma_y_end = out[i].luma_y_start
+    return out
 
 
 def choose_num_threads(num_rows: int, framebuffer_byte_size: int,

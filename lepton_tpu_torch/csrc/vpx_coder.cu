@@ -24,52 +24,20 @@
 // larger buffer.  Carries ripple backward in place over 0xFF bytes, as
 // vpx_write does.  The stop-byte rule is applied on the host.
 //
+// The branch update is vpx_branch.cuh's, shared with vpx_decoder.cu.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC; bound with ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "vpx_branch.cuh"
+
 namespace {
 
 constexpr int32_t kPad = -1;         // no-op lane padding
-constexpr int32_t kIdentity = 1 | (1 << 8) | (128 << 16);
 constexpr int kThreads = 256;
-
-// Branch::record_obs_and_update on a packed fc | tc<<8 | prob<<16 branch.
-// The prob wraps to 8 bits like the host's uint8 store: only the tc == 0
-// corner, reachable from trained templates alone, yields 256.
-__device__ __forceinline__ int32_t update_branch(int32_t packed, int obs) {
-    const int fc = packed & 0xFF;
-    const int tc = (packed >> 8) & 0xFF;
-    int nfc, ntc, nprob;
-    if (obs) {
-        if (tc == 0xFF) {
-            if (fc == 1) {
-                nfc = 1; ntc = 0xFF; nprob = 0;
-            } else {
-                nfc = (1 + fc) >> 1; ntc = 129;
-                nprob = (nfc << 8) / (nfc + 129);
-            }
-        } else {
-            nfc = fc; ntc = tc + 1;
-            nprob = (fc << 8) / (fc + tc + 1);
-        }
-    } else {
-        if (fc == 0xFF) {
-            if (tc == 1) {
-                nfc = 0xFF; ntc = 1; nprob = 255;
-            } else {
-                ntc = (1 + tc) >> 1; nfc = 129;
-                nprob = (129 << 8) / (129 + ntc);
-            }
-        } else {
-            nfc = fc + 1; ntc = tc;
-            nprob = ((fc + 1) << 8) / (fc + tc + 1);
-        }
-    }
-    return nfc | (ntc << 8) | ((nprob & 0xFF) << 16);
-}
 
 __global__ void __launch_bounds__(kThreads)
 vpx_coder_kernel(const int32_t* __restrict__ idx,
@@ -80,7 +48,7 @@ vpx_coder_kernel(const int32_t* __restrict__ idx,
     const int64_t s = blockIdx.x;
     int32_t* a = arena + s * arena_size;
     for (int k = threadIdx.x; k < arena_size; k += kThreads) {
-        a[k] = tpl ? tpl[k] : kIdentity;
+        a[k] = tpl ? tpl[k] : vpx::kIdentityBranch;
     }
     __syncthreads();
     if (threadIdx.x != 0) return;
@@ -100,7 +68,7 @@ vpx_coder_kernel(const int32_t* __restrict__ idx,
         uint32_t prob = 128;
         if (i >= 0) {            // FIXED_PROB codes at 128
             packed = a[i];
-            prob = (packed >> 16) & 0xFF;
+            prob = vpx::branch_prob(packed);
         }
         const uint32_t split = 1 + (((rng - 1) * prob) >> 8);
         if (b) {
@@ -133,7 +101,7 @@ vpx_coder_kernel(const int32_t* __restrict__ idx,
         } else {
             low <<= shift;
         }
-        if (i >= 0) a[i] = update_branch(packed, b);
+        if (i >= 0) a[i] = vpx::update_branch(packed, b);
     }
     nbytes[s] = static_cast<int32_t>(pos);
 }

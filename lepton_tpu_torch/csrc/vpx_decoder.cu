@@ -1,0 +1,526 @@
+// vpx_decoder.cu -- per-segment VPX token decoder for Hopper (sm_90a).
+//
+// Replaces lepton_tpu/kernels/pallas_decode.py::_build_kernel (the inner
+// `kernel`, :270-763, VPX reader; host side decode_segments_pallas /
+// decode_segments_pallas_multi).  For each lane (one segment of one .lep)
+// it reads the marker bit at probability 128, then for each row descriptor
+// and each block of the row, in order: the 7x7 non-zero count (a 6-bit
+// tree), the 49 interior coefficients (aavrg-bucketed unary exponent, sign,
+// residual), the horizontal then the vertical edge (Lakhani prediction,
+// threshold-contexted residual), the DC (pixel-domain prediction through
+// an IDCT that ignores the DC), and the block's outgoing neighbour summary
+// (reference decoder.cc:168-319, decode_one_edge :29-142, model.hh).  Every
+// read is an adaptive branch read-modify-write (vpx_branch.cuh, the same
+// rule and layout as vpx_coder.cu), from the identity arena or a trained
+// template.  A lane whose 7x7 count exceeds 49 sets its sticky err flag.
+//
+// Design: one CTA per lane; lanes are independent, so they run
+// concurrently (the TPU grid ran them one after another).  All threads of
+// the CTA fill the lane's model arena, the LUT and the lane's colour tables;
+// then thread 0 runs the serial decode.  The arena is ARENA_SIZE int32
+// (2.89 MB) per lane, far above the 227 KB of shared memory, so it lives in
+// device memory (torch.empty scratch from the wrapper).  A branch read is
+// one indexed load, not the Mosaic kernel's one-hot row reduction.  Thread
+// 0 keeps the block being decoded, its left, above and above-left
+// neighbours and the IDCT in shared memory.  The above block is read back
+// from the output plane (the lane decoded the row above itself); the above
+// row's summaries (non-zero count and horizontal edge) live in a per-lane
+// ring in device memory, ncomp x widest row.  Coefficients are stored as
+// int16 straight into the zero-initialised planes, so rows cut by early EOF
+// stay zero.
+//
+// Bound: one dependent chain per lane.  Each read's arena index depends on
+// the bit just decoded, and each read waits a memory round trip for its
+// branch, so the launch takes about as long as its longest lane's reads.
+// It moves few bytes (streams in, int16 planes out, the arena fill).
+//
+// Arithmetic follows the reference's C ints: a uint32 reader window,
+// truncating division for the Lakhani and DC predictions, int16 wraps on
+// stores, IDCT outputs, edge estimates and summaries.
+//
+// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//             -shared -Xcompiler -fPIC; bound with ctypes.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "vpx_branch.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxTables = 4;      // kernels/vpx_decoder.py MAX_TABLES
+constexpr int kRowFields = 7;      // ROW_FIELDS
+constexpr int kLaneFields = 4;     // LANE_FIELDS
+constexpr int kSummary = 9;        // SUMMARY: nz7, horizontal edge [8]
+constexpr int kLuts = 256;
+constexpr int32_t kLotsOfBits = 0x40000000;
+constexpr int kMaxExponent = 11;
+constexpr int kNoiseFloor = 7;     // RESIDUAL_NOISE_FLOOR
+constexpr int kNumericLengthMax = 12;
+
+// LUT layout (vpx_decoder.build_luts): unzigzag49 at 0, nonzero_to_bin at
+// 64, (n + 3) / 7 at 128, then each model table's offset and strides.
+enum Lut : int {
+    kUnzig = 0, kNzBin = 64, kNz73 = 128,
+    kNz77 = 192,                 // off, s0, s1, s2
+    kExp77 = kNz77 + 4,          // off, s0, s1, s2, s3
+    kRes = kExp77 + 5,           // off, s0, s1, s2
+    kSign = kRes + 4,            // off, s0, s1
+    kExpX = kSign + 3,           // off, s0, s1, s2, s3
+    kThresh = kExpX + 5,         // off, s0, s1, s2
+    kExpDc = kThresh + 4,        // off, s0, s1
+    kResDc = kExpDc + 3,         // off, s0
+    kNz81 = kResDc + 2,          // off, s0, s1, s2, s3
+    kNz18 = kNz81 + 5,           // off, s0, s1, s2, s3
+};
+
+// IDCT constants (idct.cc)
+constexpr int W1 = 2841, W2 = 2676, W3 = 2408, W5 = 1609, W6 = 1108,
+              W7 = 565, R2 = 181;
+
+__device__ __forceinline__ int32_t wrap16(int32_t v) {
+    return static_cast<int16_t>(v);
+}
+__device__ __forceinline__ int32_t div2_tz(int32_t v) {
+    return v < 0 ? -((-v) >> 1) : v >> 1;
+}
+__device__ __forceinline__ int bitlen(int32_t v) {  // v >= 0
+    return v > 0 ? 32 - __clz(v) : 0;
+}
+
+// The VPX bool reader with a 32-bit window (boolreader.hh:376-416).
+struct Reader {
+    const uint8_t* p;
+    int32_t len;
+    int32_t pos;
+    uint32_t value;
+    uint32_t rng;
+    int32_t count;
+    int32_t* arena;
+    int arena_size;
+
+    __device__ __forceinline__ int bit(uint32_t prob) {
+        if (count < 0) {
+            // refill byte-wise; past the end add LOTS_OF_BITS once
+            int shift = 16 - count;
+            while (shift >= 0) {
+                if (pos < len) {
+                    value |= static_cast<uint32_t>(p[pos]) << shift;
+                    ++pos;
+                    count += 8;
+                    shift -= 8;
+                } else {
+                    count += kLotsOfBits;
+                    break;
+                }
+            }
+        }
+        const uint32_t split = (rng * prob + (256 - prob)) >> 8;
+        const uint32_t big = split << 24;
+        const int b = value >= big;
+        if (b) {
+            rng -= split;
+            value -= big;
+        } else {
+            rng = split;
+        }
+        const int sh = __clz(static_cast<int>(rng)) - 24;
+        rng <<= sh;
+        value <<= sh;
+        count -= sh;
+        return b;
+    }
+
+    // adaptive read of branch idx (clamped into the arena, as the TPU
+    // kernel clamps), then the branch update
+    __device__ __forceinline__ int read(int idx) {
+        idx = min(max(idx, 0), arena_size - 1);
+        const int32_t packed = arena[idx];
+        const int b = bit(vpx::branch_prob(packed));
+        arena[idx] = vpx::update_branch(packed, b);
+        return b;
+    }
+
+    __device__ int tree(int nbits, int base, int stride) {
+        int v = 0, so_far = 0;
+        for (int i = nbits - 1; i >= 0; --i) {
+            const int b = read(base + i * stride + so_far);
+            v |= b << i;
+            so_far = (so_far << 1) | b;
+        }
+        return v;
+    }
+
+    // unary exponent: reads while the bits are 1, at most kMaxExponent
+    __device__ int exponent(int base) {
+        int length = 0;
+        while (length < kMaxExponent && read(base + length)) ++length;
+        return length;
+    }
+
+    // residual bits length-2 down to 0, at most nslots of them
+    __device__ int residual(int length, int base, int nslots) {
+        int acc = 0;
+        for (int i = length - 2; i >= 0 && i >= length - 1 - nslots; --i) {
+            acc |= read(base + i) << i;
+        }
+        return acc;
+    }
+};
+
+__device__ __forceinline__ int32_t signed_value(int length, int sbit,
+                                                int32_t mag) {
+    const int32_t v = mag | (1 << (length - 1));
+    return sbit ? v : -v;
+}
+
+// Fixed-point IDCT with the DC ignored (idct.cc scalar semantics), raster
+// in, int16-wrapped pixels out.  `tmp` holds the row pass.
+__device__ void idct_ignore_dc(const int32_t* here, const int32_t* quant,
+                               int32_t* tmp, int32_t* out) {
+    for (int y = 0; y < 8; ++y) {
+        int32_t r[8];
+        for (int i = 0; i < 8; ++i) r[i] = here[y * 8 + i] * quant[y * 8 + i];
+        if (y == 0) r[0] = 0;
+        int32_t x0 = r[0] * 2048 + 128, x1 = r[4] * 2048;
+        int32_t x2 = r[6], x3 = r[2], x4 = r[1], x5 = r[7], x6 = r[5],
+                x7 = r[3];
+        int32_t x8 = W7 * (x4 + x5);
+        x4 = x8 + (W1 - W7) * x4;
+        x5 = x8 - (W1 + W7) * x5;
+        x8 = W3 * (x6 + x7);
+        x6 = x8 - (W3 - W5) * x6;
+        x7 = x8 - (W3 + W5) * x7;
+        x8 = x0 + x1;
+        x0 -= x1;
+        x1 = W6 * (x3 + x2);
+        x2 = x1 - (W2 + W6) * x2;
+        x3 = x1 + (W2 - W6) * x3;
+        x1 = x4 + x6;
+        x4 -= x6;
+        x6 = x5 + x7;
+        x5 -= x7;
+        x7 = x8 + x3;
+        x8 -= x3;
+        x3 = x0 + x2;
+        x0 -= x2;
+        x2 = (R2 * (x4 + x5) + 128) >> 8;
+        x4 = (R2 * (x4 - x5) + 128) >> 8;
+        int32_t* t = tmp + y * 8;
+        t[0] = (x7 + x1) >> 8;
+        t[1] = (x3 + x2) >> 8;
+        t[2] = (x0 + x4) >> 8;
+        t[3] = (x8 + x6) >> 8;
+        t[4] = (x8 - x6) >> 8;
+        t[5] = (x0 - x4) >> 8;
+        t[6] = (x3 - x2) >> 8;
+        t[7] = (x7 - x1) >> 8;
+    }
+    for (int x = 0; x < 8; ++x) {
+        const int32_t* c = tmp + x;
+        int32_t y0 = c[0] * 256 + 8192, y1 = c[32] * 256;
+        int32_t y2 = c[48], y3 = c[16], y4 = c[8], y5 = c[56], y6 = c[40],
+                y7 = c[24];
+        int32_t y8 = W7 * (y4 + y5) + 4;
+        y4 = (y8 + (W1 - W7) * y4) >> 3;
+        y5 = (y8 - (W1 + W7) * y5) >> 3;
+        y8 = W3 * (y6 + y7) + 4;
+        y6 = (y8 - (W3 - W5) * y6) >> 3;
+        y7 = (y8 - (W3 + W5) * y7) >> 3;
+        y8 = y0 + y1;
+        y0 -= y1;
+        y1 = W6 * (y3 + y2) + 4;
+        y2 = (y1 - (W2 + W6) * y2) >> 3;
+        y3 = (y1 + (W2 - W6) * y3) >> 3;
+        y1 = y4 + y6;
+        y4 -= y6;
+        y6 = y5 + y7;
+        y5 -= y7;
+        y7 = y8 + y3;
+        y8 -= y3;
+        y3 = y0 + y2;
+        y0 -= y2;
+        y2 = (R2 * (y4 + y5) + 128) >> 8;
+        y4 = (R2 * (y4 - y5) + 128) >> 8;
+        out[0 * 8 + x] = wrap16((y7 + y1) >> 11);
+        out[1 * 8 + x] = wrap16((y3 + y2) >> 11);
+        out[2 * 8 + x] = wrap16((y0 + y4) >> 11);
+        out[3 * 8 + x] = wrap16((y8 + y6) >> 11);
+        out[4 * 8 + x] = wrap16((y8 - y6) >> 11);
+        out[5 * 8 + x] = wrap16((y0 - y4) >> 11);
+        out[6 * 8 + x] = wrap16((y3 - y2) >> 11);
+        out[7 * 8 + x] = wrap16((y7 - y1) >> 11);
+    }
+}
+
+__global__ void __launch_bounds__(kThreads)
+vpx_decoder_kernel(const uint8_t* __restrict__ data, int64_t lmax,
+                   const int32_t* __restrict__ dlen,
+                   const int32_t* __restrict__ lanes,
+                   const int32_t* __restrict__ rows,
+                   const int32_t* __restrict__ tables,
+                   const int32_t* __restrict__ luts,
+                   const int32_t* __restrict__ tpl, int32_t* __restrict__ arena,
+                   int arena_size, int32_t* __restrict__ ring, int ring_slots,
+                   int ring_width, int16_t* __restrict__ coef,
+                   int32_t* __restrict__ err) {
+    __shared__ int32_t lut[kLuts];
+    __shared__ int32_t tab[kMaxTables * 4 * 64];
+    __shared__ int32_t here[64], left[64], above[64], al[64], pix[64],
+        tmp[64];
+    __shared__ int32_t left_vert[8];
+
+    const int64_t s = blockIdx.x;
+    const int32_t* ln = lanes + s * kLaneFields;
+    const int row0 = ln[0], nrows = ln[1], tab0 = ln[2], ntab = ln[3];
+    int32_t* a = arena + s * arena_size;
+    for (int k = threadIdx.x; k < arena_size; k += kThreads) {
+        a[k] = tpl ? tpl[k] : vpx::kIdentityBranch;
+    }
+    for (int k = threadIdx.x; k < kLuts; k += kThreads) lut[k] = luts[k];
+    for (int k = threadIdx.x; k < ntab * 4 * 64; k += kThreads) {
+        tab[k] = tables[static_cast<int64_t>(tab0) * 4 * 64 + k];
+    }
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+
+    Reader rd{data + s * lmax, dlen[s], 0, 0, 255, -8, a, arena_size};
+    rd.bit(128);                 // marker bit (vpx_reader_init)
+    int lane_err = 0;
+    int32_t* lane_ring = ring + s * static_cast<int64_t>(ring_slots) * kSummary;
+
+    for (int ri = 0; ri < nrows; ++ri) {
+        const int32_t* rd_ = rows + static_cast<int64_t>(row0 + ri) * kRowFields;
+        const int comp = rd_[0], ci = rd_[1], width = rd_[2], W = rd_[3];
+        const bool ha = rd_[4] != 0;
+        const int32_t* quant = tab + (rd_[5] - tab0) * 4 * 64;
+        const int32_t* icx = quant + 64;
+        const int32_t* icy = quant + 128;
+        const int32_t* mnt = quant + 192;
+        const int64_t out_block = rd_[6];
+        int32_t* ringc = lane_ring + static_cast<int64_t>(comp) * ring_width
+                                     * kSummary;
+        const int q0 = quant[0];
+        const int sign_base = lut[kSign] + ci * lut[kSign + 1];
+        const int exp7_base = lut[kExp77] + ci * lut[kExp77 + 1];
+        const int res_base = lut[kRes] + ci * lut[kRes + 1];
+        const int expx_base = lut[kExpX] + ci * lut[kExpX + 1];
+        const int rt_base = lut[kThresh] + ci * lut[kThresh + 1];
+        int nz_l = 0;
+
+        for (int x = 0; x < width; ++x) {
+            const bool hl = x > 0;
+            int16_t* out = coef + (out_block + x) * 64;
+            int32_t* summ = ringc + x * kSummary;
+            for (int k = 0; k < 64; ++k) {
+                above[k] = ha ? out[k - static_cast<int64_t>(W) * 64] : 0;
+                here[k] = 0;
+            }
+            const int nza = ha ? summ[0] : 0;
+
+            // ---- 7x7 non-zero count (decoder.cc:171-185)
+            const int nzl = hl ? nz_l : 0;
+            const int nz_ctx = (hl && ha) ? (nza + nzl + 2) >> 2
+                             : ha ? (nza + 1) >> 1
+                             : hl ? (nzl + 1) >> 1 : 0;
+            int nz7 = rd.tree(6, lut[kNz77] + ci * lut[kNz77 + 1]
+                                 + lut[kNzBin + min(max(nz_ctx, 0), 49)]
+                                   * lut[kNz77 + 2],
+                              lut[kNz77 + 3]);
+            if (nz7 > 49) {
+                lane_err = 1;
+                nz7 = 49;
+            }
+
+            // ---- 49 interior coefficients (decoder.cc:200-240)
+            int nz_left = nz7, eob_x = 0, eob_y = 0;
+            for (int zz = 0; zz < 49 && nz_left > 0; ++zz) {
+                const int coord = lut[kUnzig + zz];
+                const int absl = hl ? abs(left[coord]) : 0;
+                const int absa = ha ? abs(above[coord]) : 0;
+                int aavrg;
+                if (hl && ha) {
+                    aavrg = ((13 * (absl + absa) + 6 * abs(al[coord]))
+                             & 0xFFFF) >> 5;
+                } else {
+                    aavrg = hl ? absl : absa;
+                }
+                const int bsr = bitlen(min(aavrg, 1023));
+                const int nnzb = lut[kNzBin + min(nz_left, 49)];
+                const int length = rd.exponent(
+                    exp7_base + nnzb * lut[kExp77 + 2] + zz * lut[kExp77 + 3]
+                    + bsr * lut[kExp77 + 4]);
+                if (length > 0) {
+                    const int sbit = rd.read(sign_base);
+                    const int mag = rd.residual(
+                        length, res_base + coord * lut[kRes + 2]
+                                + nnzb * lut[kRes + 3], 9);
+                    here[coord] = signed_value(length, sbit, mag);
+                    --nz_left;
+                    eob_x = max(eob_x, coord & 7);
+                    eob_y = max(eob_y, coord >> 3);
+                }
+            }
+
+            // ---- edges, horizontal then vertical (decode_one_edge)
+            const int nz73 = lut[kNz73 + nz7];
+            for (int e = 0; e < 2; ++e) {
+                const bool horizontal = e == 0;
+                const int t = horizontal ? kNz81 : kNz18;
+                const int delta = horizontal ? 1 : 8;
+                const int zig15 = horizontal ? 0 : 7;
+                const bool nb_has = horizontal ? ha : hl;
+                const int32_t* nb = horizontal ? above : left;
+                const int32_t* icos = horizontal ? icx : icy;
+                int remaining = rd.tree(
+                    3, lut[t] + ci * lut[t + 1]
+                       + (horizontal ? eob_x : eob_y) * lut[t + 2]
+                       + nz73 * lut[t + 3],
+                    lut[t + 4]);
+                for (int k = 0; k < 7 && remaining > 0; ++k) {
+                    const int band = (k + 1) * delta;
+                    int bp = 0;
+                    if (nb_has) {
+                        // Lakhani prediction (model.hh:1033-1071); the sum
+                        // wraps at 32 bits like the reference's ints
+                        const int step = horizontal ? 8 : 1;
+                        const int32_t* ic = horizontal ? icos + band * 8
+                                                       : icos + band;
+                        uint32_t pred = static_cast<uint32_t>(nb[band])
+                                        * static_cast<uint32_t>(ic[0]);
+                        for (int i = 1; i < 8; ++i) {
+                            const int32_t hx = here[band + i * step];
+                            const int32_t na = nb[band + i * step];
+                            const int32_t sgn_na = (i & 1) ? na : -na;
+                            pred -= static_cast<uint32_t>(ic[i])
+                                    * static_cast<uint32_t>(hx + sgn_na);
+                        }
+                        bp = static_cast<int32_t>(pred) / ic[0];
+                    }
+                    const int absbp = abs(bp);
+                    const int bsr = bitlen(min(absbp, 1023));
+                    const int length = rd.exponent(
+                        expx_base + remaining * lut[kExpX + 2]
+                        + (zig15 + k) * lut[kExpX + 3] + bsr * lut[kExpX + 4]);
+                    if (length > 0) {
+                        const int ctx1 = bp == 0 ? 0 : bp > 0 ? 1 : 2;
+                        const int sbit = rd.read(
+                            sign_base + ctx1 * lut[kSign + 2] + bsr);
+                        const int mt = mnt[band];
+                        const int thresh = rt_base
+                            + min(absbp >> mt, 255) * lut[kThresh + 2]
+                            + min(length - mt, kNoiseFloor) * lut[kThresh + 3];
+                        const int res = res_base + band * lut[kRes + 2]
+                                        + remaining * lut[kRes + 3];
+                        int mag = 0, dsf = 1;
+                        for (int i = length - 2; i >= 0 && i >= length - 10;
+                             --i) {
+                            const bool is_th = i >= mt;
+                            const int b = rd.read(is_th ? thresh + dsf
+                                                        : res + i);
+                            mag |= b << i;
+                            if (is_th) {
+                                dsf = min((dsf << 1) | b,
+                                          (1 << kNoiseFloor) - 1);
+                            }
+                        }
+                        here[band] = signed_value(length, sbit, mag);
+                        --remaining;
+                    }
+                }
+            }
+
+            // ---- DC last (decoder.cc:243-287, model.hh:674-784)
+            idct_ignore_dc(here, quant, tmp, pix);
+            const int big = 1 << 30;
+            int mins = big, maxs = -big, sum_le = 0, sum_ae = 0;
+            if (hl) {
+                for (int i = 0; i < 8; ++i) {
+                    const int c0 = pix[i * 8], c1 = pix[i * 8 + 1];
+                    const int est = wrap16(left_vert[i] - div2_tz(c0 - c1)
+                                           - (c0 + 1024));
+                    mins = min(mins, est);
+                    maxs = max(maxs, est);
+                    sum_le += est;
+                }
+            }
+            if (ha) {
+                for (int j = 0; j < 8; ++j) {
+                    const int r0 = pix[j], r1 = pix[8 + j];
+                    const int est = wrap16(summ[1 + j] - div2_tz(r0 - r1)
+                                           - (r0 + 1024));
+                    mins = min(mins, est);
+                    maxs = max(maxs, est);
+                    sum_ae += est;
+                }
+            }
+            const int avg_h = hl ? sum_le : sum_ae;
+            const int avg_v = (hl && ha) ? sum_ae : avg_h;
+            const int overall = (avg_h + avg_v) >> 1;
+            const bool any_n = hl || ha;
+            const int unc = any_n ? (maxs - mins) >> 3 : 0;
+            const int dh = avg_h - overall, dv = avg_v - overall;
+            const int unc2 = any_n ? (abs(dh) < abs(dv) ? dh : dv) >> 3 : 0;
+            const int avgmed = any_n ? overall : 0;
+            const int pred_dc = (avgmed / q0 + 4) >> 3;
+            const int lm = min(bitlen(abs(unc)), kNumericLengthMax - 1);
+            const int lo = min(bitlen(abs(unc2)), 16);
+            const int length = rd.exponent(lut[kExpDc] + lm * lut[kExpDc + 1]
+                                           + lo * lut[kExpDc + 2]);
+            int dc = pred_dc;
+            if (length > 0) {
+                const int sctx = unc2 < 0 ? 1 : unc2 == 0 ? 3 : 2;
+                const int sbit = rd.read(sign_base + sctx);
+                const int mag = rd.residual(
+                    length, lut[kResDc] + lm * lut[kResDc + 1], 10);
+                dc += signed_value(length, sbit, mag);
+            }
+            const int max_value = 1 << (kMaxExponent - 1);
+            if (dc < -max_value) dc += 2 * max_value + 1;
+            if (dc > max_value) dc -= 2 * max_value + 1;
+            here[0] = dc;
+
+            // ---- outgoing neighbour summary (NeighborSummary set_*)
+            summ[0] = nz7;
+            for (int i = 0; i < 8; ++i) {
+                const int c7 = pix[i * 8 + 7], c6 = pix[i * 8 + 6];
+                left_vert[i] = wrap16(dc * q0 + c7 + 1024 + div2_tz(c7 - c6));
+                const int r7 = pix[56 + i], r6 = pix[48 + i];
+                summ[1 + i] = wrap16(dc * q0 + r7 + 1024 + div2_tz(r7 - r6));
+            }
+            for (int k = 0; k < 64; ++k) {
+                const int32_t v = wrap16(here[k]);
+                out[k] = static_cast<int16_t>(v);
+                left[k] = v;
+                al[k] = above[k];
+            }
+            nz_l = nz7;
+        }
+    }
+    err[s] = lane_err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches one CTA per lane on `stream`; returns cudaGetLastError().
+int vpx_decoder_launch(const uint8_t* data, int64_t lmax, const int32_t* dlen,
+                       const int32_t* lanes, int64_t S, const int32_t* rows,
+                       const int32_t* tables, const int32_t* luts,
+                       const int32_t* tpl, int32_t* arena, int arena_size,
+                       int32_t* ring, int ring_slots, int ring_width,
+                       int16_t* coef, int32_t* err, void* stream) {
+    vpx_decoder_kernel<<<static_cast<unsigned>(S), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        data, lmax, dlen, lanes, rows, tables, luts, tpl, arena, arena_size,
+        ring, ring_slots, ring_width, coef, err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+const char* vpx_decoder_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

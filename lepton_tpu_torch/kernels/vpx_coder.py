@@ -3,8 +3,9 @@
 Port of lepton_tpu/kernels/pallas_coder.py (_coder_kernel :44-173 and its
 host side encode_streams_pallas / finalize :176-235).  The kernel is
 csrc/vpx_coder.cu, built with nvcc at first use into build/ and bound with
-ctypes.  encode_streams launches it for CUDA tensors and runs the plain
-PyTorch version, encode_streams_plain, only for CPU tensors.
+ctypes (kernels/cuda_build.py).  encode_streams launches it for CUDA
+tensors and runs the plain PyTorch version, encode_streams_plain, only for
+CPU tensors.
 
 Symbol encoding (vpx_scan.py:29-30): idx >= 0 -> adaptive branch in the
 model arena; idx == FIXED_PROB -> probability 128, no model update
@@ -13,10 +14,6 @@ model arena; idx == FIXED_PROB -> probability 128, no model update
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from typing import List, Optional
 
@@ -24,17 +21,11 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from .._native import BUILD_DIR
 from ..model.tables import ARENA_SIZE, IDENTITY_BRANCH
+from . import cuda_build
 
 PAD = -1
 FIXED_PROB = -2
-
-_CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "vpx_coder.cu")
-_SO = os.path.join(BUILD_DIR, "libvpx_coder.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lib = None
 _lock = threading.Lock()
@@ -62,37 +53,11 @@ def build_symbol_streams(segments):
     return idxs, bits
 
 
-def _nvcc() -> str:
-    return (os.environ.get("NVCC") or shutil.which("nvcc")
-            or "/usr/local/cuda/bin/nvcc")
-
-
-def build() -> str:
-    """Compile csrc/vpx_coder.cu into build/libvpx_coder.so (into a
-    temporary name first, then renamed) and return the library's path."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _CU],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_CU}:\n{r.stderr[-4000:]}")
-        os.replace(tmp, _SO)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _SO
-
-
 def _get_lib():
     global _lib
     with _lock:
         if _lib is None:
-            if (not os.path.exists(_SO)
-                    or os.path.getmtime(_SO) < os.path.getmtime(_CU)):
-                build()
-            lib = ctypes.CDLL(_SO)
+            lib = cuda_build.load("vpx_coder")
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.vpx_coder_launch.argtypes = [p, p, i64, i64, p, p, i, p,
                                              i64, p, p]

@@ -1,20 +1,24 @@
-"""The port on a CUDA card: the coder kernel against its plain version, and
-the whole encode on cuda against the same encode on the CPU.
+"""The port on a CUDA card: the coder and decoder kernels against their
+plain versions, and the whole encode and decode on cuda against the same on
+the CPU.
 
 This file imports no JAX, so it runs where only torch is installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Without a card every test skips.  Streams are compared byte for byte: the
-tolerance is zero.
+Without a card every test skips.  Streams, planes and JPEGs are compared
+byte for byte: the tolerance is zero.
 """
+import io
+
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import chip_smoke
 from lepton_tpu_torch import api
-from lepton_tpu_torch.kernels import vpx_coder
+from lepton_tpu_torch.kernels import vpx_coder, vpx_decoder
 from lepton_tpu_torch.model.tables import ARENA_SIZE, arena_from_template
 
 
@@ -57,3 +61,78 @@ def test_compress_device_cuda_equals_cpu(cuda):
     data = chip_smoke.make_photo(3, 96, 64)
     assert api.compress_device(data, num_segments=4) \
         == api.compress_device(data, num_segments=4, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["identity", "template"])
+def test_decoder_kernel_matches_plain(cuda, start):
+    """Two requests of different geometry and quality, 3 lanes, decoded in
+    one launch and by the plain version on the same CUDA tensors."""
+    packed = tpl = None
+    if start == "template":
+        raw = np.random.default_rng(42).integers(0, 256, (ARENA_SIZE, 3),
+                                                 dtype=np.uint8)
+        raw[:, 2] = 1 + raw[:, 2] % 254
+        packed = api.pack_model(raw)
+        tpl = arena_from_template(packed).to(cuda)
+    pairs = [chip_smoke.small_lep(7, 96, 64, 90, 2, packed),
+             chip_smoke.small_lep(8, 48, 32, 60, 1, packed)]
+    plan = vpx_decoder.plan_decode([api._decode_request(lep, i)[0]
+                                    for i, (_, lep) in enumerate(pairs)])
+    inputs = plan.to(cuda)
+    before = vpx_decoder.decode_lanes.launches
+    coef, err = vpx_decoder.decode_lanes(**inputs, template=tpl)
+    assert vpx_decoder.decode_lanes.launches == before + 1
+    coef_p, err_p = vpx_decoder.decode_lanes_plain(**inputs, template=tpl)
+    assert torch.equal(coef, coef_p) and torch.equal(err, err_p)
+    assert not err.any()
+
+
+@pytest.mark.cuda
+def test_decompress_device_cuda_equals_cpu(cuda):
+    data = chip_smoke.make_photo(4, 96, 64)
+    lep = api.compress_device(data, num_segments=4)
+    assert api.decompress_device(lep) == data
+    assert api.batch_decompress_device([lep, lep]) \
+        == api.batch_decompress_device([lep, lep], device="cpu")
+
+
+def _jpeg(w, h, seed, mode, **kw) -> bytes:
+    """A smooth gradient plus noise, saved by PIL (as
+    tests/test_torch_encode._jpeg makes it; that module imports JAX)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (xx * 255 / w + yy * 255 / h) / 2
+    ch = np.clip(base + rng.normal(0, 24, size=(h, w)), 0, 255)
+    ch = ch.astype(np.uint8)
+    img = Image.fromarray(ch, "L") if mode == "L" else Image.fromarray(
+        np.stack([ch, np.roll(ch, 7, 0), np.roll(ch, 13, 1)], -1), "RGB")
+    buf = io.BytesIO()
+    img.save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+GEOMETRIES = [
+    ("444_q95", 40, 24, "RGB", dict(quality=95, subsampling=0), 1, 1.0),
+    ("422_q50", 48, 32, "RGB", dict(quality=50, subsampling=1), 2, 1.0),
+    ("gray", 33, 17, "L", dict(quality=85), 1, 1.0),
+    ("odd_dims", 37, 21, "RGB", dict(quality=80, subsampling=2), 1, 1.0),
+    ("restart_markers", 48, 48, "RGB",
+     dict(quality=80, restart_marker_blocks=4, subsampling=2), 3, 1.0),
+    ("gray_segments", 24, 40, "L", dict(quality=90), 4, 1.0),
+    ("early_eof", 64, 64, "RGB", dict(quality=80, subsampling=2), 1, 0.6),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,w,h,mode,kw,k,cut", GEOMETRIES,
+                         ids=[g[0] for g in GEOMETRIES])
+def test_decoder_kernel_geometries(cuda, name, w, h, mode, kw, k, cut):
+    """The decoder kernel on the geometries the 4:2:0 photos of
+    chip_smoke.py do not reach: the JPEG comes back byte for byte."""
+    data = _jpeg(w, h, len(name), mode, **kw)
+    data = data[:int(len(data) * cut)]
+    lep = chip_smoke.encode_in_segments(data, k)
+    before = vpx_decoder.decode_lanes.launches
+    assert api.decompress_device(lep) == data
+    assert vpx_decoder.decode_lanes.launches == before + 1
