@@ -6,9 +6,12 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, before the result line):
-  1. build the VPX coder kernel (csrc/vpx_coder.cu) with nvcc into build/,
-     in parallel with phase 5's build;
-  2. hold the kernel against its plain PyTorch version on CUDA tensors:
+  1. build the four kernels with nvcc into build/, one nvcc a source, all
+     started together: the VPX coder (csrc/vpx_coder.cu), the token
+     decoder with its VPX and rANS readers (csrc/vpx_decoder.cu, phase 5),
+     the ANS coder (csrc/ans_coder.cu, phase 8) and the roofline probe
+     (csrc/decode_roofline.cu, phase 12);
+  2. hold the VPX coder against its plain PyTorch version on CUDA tensors:
      adversarial streams (branch reuse, a long carry chain), the same under
      a trained-template start arena, and a framed 20k-symbol prefix of
      every lane of the full-size batch of phase 4;
@@ -18,7 +21,7 @@ Phases (any failure exits non-zero, before the result line):
      kernel's launch count read around it; image 0 alone must give the
      same bytes.  Then the coder kernel is timed again on all 64 lanes and
      on the longest lane alone.
-  5. build the VPX token decoder kernel (csrc/vpx_decoder.cu);
+  5. (the decoder's build is part of phase 1)
   6. hold the decoder against its plain PyTorch version on CUDA tensors:
      small JPEGs encoded on the card with 1, 2 and 4 segments, from the
      identity arena and from phase 2's trained template, and one
@@ -31,7 +34,28 @@ Phases (any failure exits non-zero, before the result line):
      decoder is timed again on all 64 lanes and on the longest lane alone,
      and held against its plain version on all 64 lanes of the main path,
      each cut to its first rows of a few dozen blocks, with plane widths,
-     output offsets, ring and plane sizes as the main path gives them.
+     output offsets, ring and plane sizes as the main path gives them;
+  8. hold the ANS coder against its plain version on CUDA tensors:
+     adversarial lanes (empty, one symbol, odd and even counts, one branch
+     past both count overflows, a long lane), the same from the template,
+     a template's prob-0 branch (a 1 bit there codes; a 0 bit, freq 0,
+     raises as in the plain version), and an unframed 10k-symbol prefix of
+     all 64 v3 lanes of phase 9;
+  9. the v3 main path: batch_compress_device(version=3) on phase 4's four
+     JPEGs, with the ANS coder's launches read around it (one); image 0
+     alone gives the same bytes; small images give equal v2 and v3 bytes on
+     cuda and cpu; then batch_decompress_device on the four v3 files, with
+     the readers' launches read around it (one of the rANS reader), gives
+     back every original JPEG byte for byte.  Then both v3 kernels are
+     timed again on all 64 lanes and on the longest lane alone;
+ 10. hold the rANS reader against its plain version: small v3 files with
+     1, 2 and 4 segments, one from the template, and phase 9's 64 lanes
+     cut to one row a component of a dozen blocks;
+ 11. one batch_decompress_device call with v1, v2 and v3 requests: one
+     launch of each reader, and every original JPEG back;
+ 12. the roofline probe: each chain's checksum equal to its plain loop,
+     then ns a step of each chain with the arena in device memory and in
+     shared memory.
 It prints stage times, sizes, rates and peak memory, then the card's name
 and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -56,6 +80,11 @@ CODER_OPS_PER_SYMBOL = 30      # integer ops of one coded symbol, roughly
 DECODER_OPS_PER_READ = 40      # integer ops of one decoded read, roughly
 STOP_BITS = 32                 # coded after each lane's last symbol
 CUT_ROWS, CUT_WIDTH = 2, 24    # phase-7 cut of the main path's lanes
+ANS_PREFIX = 10000             # symbols per lane in the phase-8 prefix cut
+ANS_CUT_ROWS, ANS_CUT_WIDTH = 1, 12   # phase-10 cut of the v3 lanes
+ANS_CODER_OPS_PER_SYMBOL = 60  # integer ops of one symbol, both passes
+PROBE_CHECK_ITERS = 2000       # steps of the probe's checksum holds
+PROBE_STEPS = 1 << 20          # steps of each timed probe chain
 
 
 def fail(msg: str) -> None:
@@ -116,6 +145,78 @@ def adversarial_segments():
     return segments
 
 
+def ans_adversarial_segments(long_lane: int = 32000):
+    """Unframed v3 lanes that stress the ANS coder: empty, one symbol, odd
+    and even counts with 70% branch reuse, one branch hammered until both
+    of its counts overflow, and a long random lane of many emitted words."""
+    from lepton_tpu_torch.model.tables import ARENA_SIZE
+    rng = random.Random(11)
+    segments = [([], []), ([5], [1])]
+    for n in (901, 900):
+        idx = [rng.randrange(ARENA_SIZE) for _ in range(n)]
+        for k in range(1, n):
+            if rng.random() < 0.7:
+                idx[k] = idx[rng.randrange(k)]
+        segments.append((idx, [rng.randrange(2) for _ in range(n)]))
+    segments.append(([7] * 3001, [1] * 1000 + [0] * 1000
+                     + [rng.randrange(2) for _ in range(1001)]))
+    segments.append(([rng.randrange(64) for _ in range(long_lane)],
+                     [rng.randrange(2) for _ in range(long_lane)]))
+    return segments
+
+
+def unframed_lanes(segments):
+    """(idx int32 [S, L], bit uint8 [S, L], nsyms int32 [S]) numpy arrays of
+    unframed lanes, PAD after each lane's symbols."""
+    from lepton_tpu_torch.kernels.vpx_coder import PAD
+    L = max([len(i) for i, _ in segments] + [1])
+    idx = np.full((len(segments), L), PAD, np.int32)
+    bit = np.zeros((len(segments), L), np.uint8)
+    for s, (i, b) in enumerate(segments):
+        idx[s, :len(i)] = i
+        bit[s, :len(b)] = b
+    return idx, bit, np.asarray([len(i) for i, _ in segments], np.int32)
+
+
+def prob0_lanes():
+    """A template whose branch 7 stores prob byte 0, as a VPX-trained model
+    does for a branch it never saw, and unframed lanes on it.  The first
+    use of branch 7 codes at probability 0: a 1 bit there is freq 256 and
+    codes; a 0 bit is freq 0 and has no code.  Returns (packed template,
+    segments that code, segments of which lane 1 cannot)."""
+    from lepton_tpu_torch.model.tables import ARENA_SIZE
+    packed = np.full(ARENA_SIZE, 0x010180, np.uint32)
+    packed[7] = 0x010100
+    return (packed, [([7, 7, 3], [1, 0, 1]), ([3, 7], [0, 1])],
+            [([3], [0]), ([7, 7], [0, 1])])
+
+
+def check_ans_zero_freq(dev) -> None:
+    """The ANS coder kernel codes a 1 bit at probability 0 as the plain
+    version does, and refuses a 0 bit there (freq 0) with the plain
+    version's ValueError instead of writing a stream nothing decodes."""
+    import torch
+    from lepton_tpu_torch.kernels import ans_coder
+    from lepton_tpu_torch.model.tables import arena_from_template
+    packed, ok, bad = prob0_lanes()
+    tpl = arena_from_template(packed).to(dev)
+    compare_ans_coder(*(torch.as_tensor(a, device=dev)
+                        for a in unframed_lanes(ok)), tpl)
+    counted = ans_coder.encode_streams_ans.launches
+    for fn in (ans_coder.encode_streams_ans,
+               ans_coder.encode_streams_ans_plain):
+        try:
+            fn(*(torch.as_tensor(a, device=dev) for a in unframed_lanes(bad)),
+               tpl)
+        except ValueError as e:
+            if "lanes [1]" not in str(e):
+                fail(f"{fn.__name__} refused the wrong lanes: {e}")
+        else:
+            fail(f"{fn.__name__} coded a 0 bit at probability 0")
+    # launches made to compare do not count toward the main path
+    ans_coder.encode_streams_ans.launches = counted
+
+
 def timed_cuda(fn, *args):
     """(result, ms) of one call, CUDA events around it."""
     import torch
@@ -152,9 +253,35 @@ def compare_coder(idx, bit, template=None):
     return err, ms_k, ms_p
 
 
-def encode_in_segments(jpeg: bytes, nseg: int, template=None) -> bytes:
-    """The .lep of a JPEG, encoded on the card in nseg segments from
-    `template` (a packed trained model, or None)."""
+def compare_ans_coder(idx, bit, nsyms, template=None):
+    """ANS coder kernel vs plain version on the same CUDA tensors.  Returns
+    (max_abs_err over the lane bytes, kernel ms, plain ms, most words of a
+    lane)."""
+    import torch
+    from lepton_tpu_torch.kernels import ans_coder
+    counted = ans_coder.encode_streams_ans.launches
+    (out_k, nw_k), ms_k = timed_cuda(ans_coder.encode_streams_ans, idx, bit,
+                                     nsyms, template)
+    (out_p, nw_p), ms_p = timed_cuda(ans_coder.encode_streams_ans_plain, idx,
+                                     bit, nsyms, template)
+    # launches made to compare do not count toward the main path
+    ans_coder.encode_streams_ans.launches = counted
+    if not torch.equal(nw_k.cpu(), nw_p.cpu()):
+        fail("ANS coder kernel and plain version differ in word counts")
+    sk = ans_coder.finalize_ans(out_k, nw_k)
+    sp = ans_coder.finalize_ans(out_p, nw_p)
+    err = max(int(np.abs(np.frombuffer(a, np.uint8).astype(np.int16)
+                         - np.frombuffer(b, np.uint8)).max())
+              for a, b in zip(sk, sp))
+    if sk != sp:
+        fail(f"ANS coder kernel differs from plain version (max err {err})")
+    return err, ms_k, ms_p, int(nw_k.max())
+
+
+def encode_in_segments(jpeg: bytes, nseg: int, template=None,
+                       version: int = 1) -> bytes:
+    """The container `version` .lep of a JPEG, encoded on the card in nseg
+    segments from `template` (a packed trained model, or None)."""
     import torch
     from lepton_tpu_torch import api
     from lepton_tpu_torch.container.handoff import (choose_num_threads,
@@ -168,16 +295,16 @@ def encode_in_segments(jpeg: bytes, nseg: int, template=None) -> bytes:
     if len(splits) != nseg:
         fail(f"{len(splits)} segments, not {nseg}")
     streams = batch_encode.encode_images_device(
-        [api._describe(info, dec, splits)], template=template,
+        [api._describe(info, dec, splits)], version, template=template,
         device=torch.device("cuda"))[0]
-    return api._container(parsed, dec, splits, nt, streams)
+    return api._container(parsed, dec, splits, nt, streams, version)
 
 
 def small_lep(seed: int, w: int, h: int, quality: int, nseg: int,
-              template=None) -> tuple:
+              template=None, version: int = 1) -> tuple:
     """(JPEG, .lep) of a small photo, encoded on the card in nseg segments."""
     jpeg = make_photo(seed, w, h, quality)
-    return jpeg, encode_in_segments(jpeg, nseg, template)
+    return jpeg, encode_in_segments(jpeg, nseg, template, version)
 
 
 def compare_lanes(inputs: dict, template=None):
@@ -186,13 +313,14 @@ def compare_lanes(inputs: dict, template=None):
     the planes, kernel ms, plain ms)."""
     import torch
     from lepton_tpu_torch.kernels import vpx_decoder
-    counted = vpx_decoder.decode_lanes.launches
+    dl = vpx_decoder.decode_lanes
+    counted = dl.launches, dl.ans_launches
     (coef_k, err_k), ms_k = timed_cuda(
         lambda: vpx_decoder.decode_lanes(**inputs, template=template))
     (coef_p, err_p), ms_p = timed_cuda(
         lambda: vpx_decoder.decode_lanes_plain(**inputs, template=template))
     # launches made to compare do not count toward the main path
-    vpx_decoder.decode_lanes.launches = counted
+    dl.launches, dl.ans_launches = counted
     err = int((coef_k.int() - coef_p.int()).abs().max()) if len(coef_k) \
         else 0
     if err or not torch.equal(err_k, err_p):
@@ -201,14 +329,14 @@ def compare_lanes(inputs: dict, template=None):
     return coef_k, err_k, err, ms_k, ms_p
 
 
-def compare_decoder(leps, jpegs, template=None):
-    """compare_lanes for the requests of `leps` in one call; the planes
-    must also be the JPEGs' own.  Returns (max_abs_err over the planes,
-    kernel ms, plain ms)."""
+def compare_decoder(leps, jpegs, template=None, coder="vpx"):
+    """compare_lanes for the requests of `leps` (all of one coder) in one
+    call; the planes must also be the JPEGs' own.  Returns (max_abs_err
+    over the planes, kernel ms, plain ms)."""
     from lepton_tpu_torch import api
     from lepton_tpu_torch.kernels import vpx_decoder
     plan = vpx_decoder.plan_decode([api._decode_request(lep, i)[0]
-                                    for i, lep in enumerate(leps)])
+                                    for i, lep in enumerate(leps)], coder)
     coef_k, err_k, err, ms_k, ms_p = compare_lanes(plan.to("cuda"), template)
     if err_k.any():
         fail("decoder flagged a stream inconsistency on a valid .lep")
@@ -260,16 +388,19 @@ def cut_lanes(inputs: dict, rows_per_comp: int, width: int) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, HERE)
     try:
         from lepton_tpu_torch import api
-        from lepton_tpu_torch.kernels import (batch_encode, cuda_build,
-                                              vpx_coder, vpx_decoder)
+        from lepton_tpu_torch.kernels import (ans_coder, batch_encode,
+                                              cuda_build, vpx_coder,
+                                              vpx_decoder)
         from lepton_tpu_torch.model.tables import (ARENA_SIZE,
                                                    arena_from_template)
+        from lepton_tpu_torch.probes import decode_roofline
     except ImportError as e:
         fail(f"lepton_tpu_torch is not beside chip_smoke.py: {e}")
     dev = torch.device("cuda")
@@ -280,9 +411,11 @@ def main() -> None:
     log(f"card: {name} ({smi}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    # ---- phases 1 and 5: build both kernels, one nvcc each, together
-    took = cuda_build.build(["vpx_coder", "vpx_decoder"])
-    for phase, kname in (("1", "vpx_coder"), ("5", "vpx_decoder")):
+    # ---- phase 1: build the kernels, one nvcc each, together
+    took = cuda_build.build(["vpx_coder", "vpx_decoder", "ans_coder",
+                             "decode_roofline"])
+    for phase, kname in (("1", "vpx_coder"), ("5", "vpx_decoder"),
+                         ("8", "ans_coder"), ("12", "decode_roofline")):
         log(f"[{phase}] built "
             f"{os.path.relpath(cuda_build.so_path(kname), HERE)} for sm_90a "
             f"in {took[kname]:.1f} s")
@@ -491,7 +624,7 @@ def main() -> None:
         if not all(torch.equal(a, torch.as_tensor(b, device=dev))
                    for a, b in zip(planes, desc["planes"])):
             fail("device planes differ from the parse's planes")
-    del coef
+    del coef, planes        # planes are views of coef
     # the longest lane by the decode plan's blocks; its reads are the coder's
     # symbols of the same segment (lanes are segments in request order on
     # both sides), the marker bit, then one read per coded symbol
@@ -548,6 +681,281 @@ def main() -> None:
         "plain_inputs": cut_input,
         "kernel_ms_on_plain_inputs": cut_k_ms,
     })
+
+    # ---- phase 8: the ANS coder against plain on adversarial lanes
+    idx_a, bit_a, ns_a = (torch.as_tensor(a, device=dev) for a in
+                          unframed_lanes(ans_adversarial_segments()))
+    aerrs = []
+    for label, template in (("identity", None), ("template", tpl)):
+        err, ms_k, ms_p, nw = compare_ans_coder(idx_a, bit_a, ns_a, template)
+        aerrs.append(err)
+        log(f"[8] adversarial lanes {tuple(idx_a.shape)} (symbols "
+            f"{ns_a.tolist()}, up to {nw} words), {label} start: kernel == "
+            f"plain (kernel {ms_k:.2f} ms, plain {ms_p:.0f} ms)")
+    del idx_a, bit_a, ns_a
+    check_ans_zero_freq(dev)
+    log("[8] a template's prob-0 branch: a 1 bit codes as in plain, a 0 "
+        "bit (freq 0) raises on the card as in plain")
+    idx3, bit3, _ = batch_encode.assemble_lanes(descs, dev, framed=False)
+    lane_syms3 = (idx3 != vpx_coder.PAD).sum(1).cpu().numpy()
+    ns_p = torch.as_tensor(np.minimum(lane_syms3, ANS_PREFIX),
+                           dtype=torch.int32, device=dev)
+    err, aprefix_ms, aplain_ms, _ = compare_ans_coder(
+        idx3[:, :ANS_PREFIX].contiguous(), bit3[:, :ANS_PREFIX].contiguous(),
+        ns_p)
+    aerrs.append(err)
+    log(f"[8] unframed {ANS_PREFIX}-symbol prefix of all {idx3.shape[0]} v3 "
+        f"lanes: kernel == plain (kernel {aprefix_ms:.2f} ms, plain "
+        f"{aplain_ms:.0f} ms)")
+    del idx3, bit3
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the v3 main path, encode then decode
+    ans_coder.encode_streams_ans.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    prof3 = {}
+    leps3 = api.batch_compress_device(blobs, num_segments=16, stats=prof3,
+                                      version=3)
+    torch.cuda.synchronize(dev)
+    wall3 = time.perf_counter() - t
+    alaunches = ans_coder.encode_streams_ans.launches
+    peak3 = torch.cuda.max_memory_allocated(dev)
+    if alaunches != 1:
+        fail(f"the v3 encode launched the ANS coder {alaunches} times, not 1")
+    if prof3["lanes"] != 64:
+        fail(f"expected 64 v3 lanes, got {prof3['lanes']}")
+    for b, lep in zip(blobs, leps3):
+        if lep[:3] != b"\xcf\x84\x03" or int.from_bytes(
+                lep[-4:], "little") != len(lep) or not len(lep) < len(b):
+            fail("malformed or non-shrinking v3 .lep")
+    t = time.perf_counter()
+    alone = api.compress_device(blobs[0], version=3)
+    torch.cuda.synchronize(dev)
+    single3_s = time.perf_counter() - t
+    if alone != leps3[0]:
+        fail("v3 image 0: batch output differs from compress_device alone")
+    for version in (2, 3):
+        if api.compress_device(small, num_segments=4, version=version) \
+                != api.compress_device(small, num_segments=4, device="cpu",
+                                       version=version):
+            fail(f"v{version} compress_device: cuda and cpu bytes differ")
+    bytes_out3 = sum(map(len, leps3))
+    log(f"[9] batch_compress_device(version=3): 4 images, {prof3['lanes']} "
+        f"lanes, {alaunches} ANS coder launch; image 0 alone gives equal "
+        f"bytes; 160x120 in 4 segments gives equal v2 and v3 bytes on cuda "
+        f"and cpu")
+    log(f"[9] v3 stage s: parse+huffman {prof3['parse_s']:.3f}, symbolize "
+        f"{prof3['symbolize_s']:.3f}, assembly {prof3['assemble_s']:.3f}, "
+        f"ANS coder kernel {prof3['ans_coder_ms'] / 1e3:.3f} (CUDA events), "
+        f"finalize+mux {prof3['finalize_s'] + prof3['mux_s']:.3f}; wall "
+        f"{wall3:.3f}; {bytes_in / 1e6 / wall3:.2f} MB/s; peak "
+        f"max_memory_allocated {peak3 / 2**30:.2f} GiB; compress_device on "
+        f"image 0 alone {single3_s:.3f} s")
+    log(f"[9] v3 symbols coded {prof3['symbols']}, longest lane "
+        f"{prof3['max_lane_symbols']}")
+    log(f"[9] .lep bytes: v3 {bytes_out3} (ratio "
+        f"{bytes_out3 / bytes_in:.4f}), v1 {bytes_out} (ratio "
+        f"{bytes_out / bytes_in:.4f}); v3/v1 {bytes_out3 / bytes_out:.4f}")
+
+    # the ANS coder again on the whole batch and on its longest lane alone
+    idx3, bit3, _ = batch_encode.assemble_lanes(descs, dev, framed=False)
+    ns3 = torch.as_tensor(lane_syms3, dtype=torch.int32, device=dev)
+    k3 = int(lane_syms3.argmax())
+    _, aagain_ms = timed_cuda(ans_coder.encode_streams_ans, idx3, bit3, ns3)
+    _, aalone_ms = timed_cuda(ans_coder.encode_streams_ans,
+                              idx3[k3:k3 + 1].contiguous(),
+                              bit3[k3:k3 + 1].contiguous(), ns3[k3:k3 + 1])
+    log(f"[9] ANS coder kernel alone: all {len(lane_syms3)} lanes "
+        f"{aagain_ms:.2f} ms; longest lane ({k3}, {lane_syms3[k3]} symbols) "
+        f"only {aalone_ms:.2f} ms, "
+        f"{aalone_ms * 1e6 / lane_syms3[k3]:.1f} ns a symbol")
+    del idx3, bit3
+    torch.cuda.empty_cache()
+
+    decode_lanes = vpx_decoder.decode_lanes
+    decode_lanes.launches = decode_lanes.ans_launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    dprof3 = {}
+    outs = api.batch_decompress_device(leps3, stats=dprof3)
+    torch.cuda.synchronize(dev)
+    dwall3 = time.perf_counter() - t
+    rlaunches = (decode_lanes.launches, decode_lanes.ans_launches)
+    dpeak3 = torch.cuda.max_memory_allocated(dev)
+    if rlaunches != (0, 1):
+        fail(f"the v3 decode made (VPX, rANS) reader launches {rlaunches}, "
+             "not (0, 1)")
+    if outs != blobs:
+        fail("batch_decompress_device did not give back the original JPEGs "
+             "from the v3 files")
+    log(f"[9] batch_decompress_device on the v3 files: {dprof3['lanes']} "
+        f"lanes, {rlaunches[1]} rANS reader launch; every JPEG back byte "
+        f"for byte")
+    log(f"[9] v3 decode stage s: read+demux {dprof3['read_s']:.3f}, "
+        f"plan+upload {dprof3['plan_s']:.3f}, rANS reader kernel "
+        f"{dprof3['ans_decoder_ms'] / 1e3:.3f} (CUDA events), d2h "
+        f"{dprof3['d2h_s']:.3f}, recode {dprof3['recode_s']:.3f}; wall "
+        f"{dwall3:.3f}; {bytes_in / 1e6 / dwall3:.2f} MB/s; peak "
+        f"max_memory_allocated {dpeak3 / 2**30:.2f} GiB")
+    plan3 = vpx_decoder.plan_decode([api._decode_request(lep, i)[0]
+                                     for i, lep in enumerate(leps3)], "ans")
+    inputs3 = plan3.to(dev)
+    (coef, derr), ragain_ms = timed_cuda(
+        lambda: vpx_decoder.decode_lanes(**inputs3))
+    for (planes, _), desc in zip(vpx_decoder.split_planes(plan3, coef, derr),
+                                 descs):
+        if not all(torch.equal(a, torch.as_tensor(b, device=dev))
+                   for a, b in zip(planes, desc["planes"])):
+            fail("v3 device planes differ from the parse's planes")
+    del coef, planes
+    _, ralone_ms = timed_cuda(
+        lambda: vpx_decoder.decode_lanes(**one_lane(inputs3, k3)))
+    log(f"[9] v3 device planes equal the parse's; rANS reader alone: all "
+        f"{len(lane_syms3)} lanes {ragain_ms:.2f} ms; lane {k3} "
+        f"({lane_syms3[k3]} reads, one a coded symbol) only "
+        f"{ralone_ms:.2f} ms, {ralone_ms * 1e6 / lane_syms3[k3]:.1f} ns a "
+        f"read")
+
+    # ---- phase 10: the rANS reader against plain
+    rerrs = []
+    for nseg, w, h, template in ((1, 64, 48, None), (2, 96, 64, tpl),
+                                 (4, 96, 64, None)):
+        jpeg, lep = small_lep(SEED + 40 + nseg, w, h, 85, nseg,
+                              None if template is None else packed,
+                              version=3)
+        err, ms_k, ms_p = compare_decoder([lep], [jpeg], template, "ans")
+        rerrs.append(err)
+        log(f"[10] v3 {w}x{h}, {nseg} segment(s), "
+            f"{'template' if template is not None else 'identity'} start: "
+            f"rANS reader == plain (kernel {ms_k:.2f} ms, plain "
+            f"{ms_p:.0f} ms)")
+    cut3 = cut_lanes(inputs3, ANS_CUT_ROWS, ANS_CUT_WIDTH)
+    _, cut_flags, err, rcut_k_ms, rcut_p_ms = compare_lanes(cut3)
+    rerrs.append(err)
+    rcut_blocks = int(cut3["rows"][:, 2].sum())
+    rcut_input = (f"the 64 v3 main-path lanes cut to {ANS_CUT_ROWS} row a "
+                  f"component of at most {ANS_CUT_WIDTH} blocks "
+                  f"({rcut_blocks} blocks; plane widths, offsets, ring and "
+                  f"planes as on the main path)")
+    log(f"[10] {rcut_input}: rANS reader == plain, planes and err flags "
+        f"({int(cut_flags.count_nonzero())} lanes flagged past the cut); "
+        f"kernel {rcut_k_ms:.2f} ms, plain {rcut_p_ms:.0f} ms")
+
+    # ---- phase 11: one call with v1, v2 and v3 requests
+    small2 = api.compress_device(small, num_segments=4, version=2)
+    decode_lanes.launches = decode_lanes.ans_launches = 0
+    mixed = [leps[0], small2, leps3[1]]
+    if api.batch_decompress_device(mixed) != [blobs[0], small, blobs[1]]:
+        fail("the mixed v1/v2/v3 call did not give back every original")
+    if (decode_lanes.launches, decode_lanes.ans_launches) != (1, 1):
+        fail("the mixed call did not launch each reader once")
+    log("[11] one batch_decompress_device call with a v1, a v2 and a v3 "
+        "request: one VPX reader launch, one rANS reader launch, every "
+        "JPEG back byte for byte")
+
+    # ---- phase 12: the roofline probe
+    chains = [("rmw", 1), ("rmw", 2), ("rmw", 4), ("rmw", 8), ("alu", 1),
+              ("mixed", 1)]
+    decode_roofline.probe.launches = 0
+    t = time.perf_counter()
+    plain_sums = {(kind, K, sh): decode_roofline.probe_plain(
+        kind, PROBE_CHECK_ITERS, K, sh)
+        for kind, K in chains for sh in (False, True)
+        if not (kind == "alu" and sh)}
+    probe_plain_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    for (kind, K, sh), want in plain_sums.items():
+        got = int(decode_roofline.probe(kind, PROBE_CHECK_ITERS, K, sh))
+        if got != want:
+            fail(f"probe {kind} K={K} shared={sh}: checksum {got}, plain "
+                 f"{want}")
+    probe_check_ms = (time.perf_counter() - t) * 1e3
+    log(f"[12] probe checksums equal to the plain loop for "
+        f"{len(plain_sums)} chains of {PROBE_CHECK_ITERS} steps (plain "
+        f"{probe_plain_ms:.0f} ms, kernels {probe_check_ms:.1f} ms with "
+        f"their syncs)")
+    probe_ns = {}
+    for sh in (False, True):
+        for kind, K in chains:
+            if kind == "alu" and sh:
+                continue
+            decode_roofline.probe(kind, 1000, K, sh)        # warm
+            _, ms = timed_cuda(decode_roofline.probe, kind, PROBE_STEPS // K,
+                               K, sh)
+            probe_ns[kind, K, sh] = ms * 1e6 / (PROBE_STEPS // K * K)
+        where = ("shared memory (256 rows)" if sh
+                 else "device memory (4096 rows)")
+        base = probe_ns["rmw", 1, sh]
+        log(f"[12] arena in {where}: dependent RMW {base:.1f} ns a step; "
+            + ", ".join(f"K={K} {probe_ns['rmw', K, sh]:.1f} ns "
+                        f"({base / probe_ns['rmw', K, sh]:.2f}x)"
+                        for K in (2, 4, 8))
+            + f"; mixed RMW+12 ALU {probe_ns['mixed', 1, sh]:.1f} ns"
+            + ("" if sh else f"; 12-op ALU chain {probe_ns['alu', 1, sh]:.1f}"
+               " ns an iteration"))
+    plaunches = decode_roofline.probe.launches
+    mixed_ms = probe_ns["mixed", 1, False] * PROBE_STEPS / 1e6
+
+    # least times of the new kernels' work on this run's data
+    a_moved = int(lane_syms3.sum()) * 5 + bytes_out3 + 4 * len(lane_syms3)
+    a_bytes = a_moved / H100_BYTES_PER_S * 1e3
+    a_ops = int(lane_syms3.sum()) * ANS_CODER_OPS_PER_SYMBOL \
+        / H100_SCALAR_OPS_PER_S * 1e3
+    kernels.append({
+        "name": "ans_coder", "route": "cuda",
+        "source": "lepton_tpu_torch/csrc/ans_coder.cu",
+        "replaces": "lepton_tpu/kernels/batch_encode.py:378",
+        "launches": alaunches, "max_abs_err": max(aerrs),
+        "ms": prof3["ans_coder_ms"], "plain_ms": aplain_ms,
+        "bound_ms": max(a_bytes, a_ops),
+        "bound_by": "bytes" if a_bytes >= a_ops else "operations",
+        "library_ms": None,
+        "equal_to_plain": True,
+        "plain_inputs": f"{ANS_PREFIX}-symbol unframed prefix of 64 lanes",
+        "kernel_ms_on_plain_inputs": aprefix_ms,
+    })
+    r_moved = (int(plan3.dlen.sum()) * 4 + plan3.n_blocks * 64 * 2
+               + len(lane_syms3) * ARENA_SIZE * 4)
+    r_bytes = r_moved / H100_BYTES_PER_S * 1e3
+    r_ops = int(lane_syms3.sum()) * DECODER_OPS_PER_READ \
+        / H100_SCALAR_OPS_PER_S * 1e3
+    kernels.append({
+        "name": "ans_reader", "route": "cuda",
+        "source": "lepton_tpu_torch/csrc/vpx_decoder.cu",
+        "replaces": "lepton_tpu/kernels/pallas_decode.py:330",
+        "launches": rlaunches[1], "max_abs_err": max(rerrs),
+        "ms": dprof3["ans_decoder_ms"], "plain_ms": rcut_p_ms,
+        "bound_ms": max(r_bytes, r_ops),
+        "bound_by": "bytes" if r_bytes >= r_ops else "operations",
+        "library_ms": None,
+        "equal_to_plain": True,
+        "plain_inputs": rcut_input,
+        "kernel_ms_on_plain_inputs": rcut_k_ms,
+    })
+    # the timed mixed chain: 4 bytes out after a 2 MB arena fill, and about
+    # 5 + 3 * 12 integer ops a step
+    p_bytes = (decode_roofline.ROWS * decode_roofline.LANES * 4 + 4) \
+        / H100_BYTES_PER_S * 1e3
+    p_ops = PROBE_STEPS * 41 / H100_SCALAR_OPS_PER_S * 1e3
+    kernels.append({
+        "name": "decode_roofline", "route": "cuda",
+        "source": "lepton_tpu_torch/csrc/decode_roofline.cu",
+        "replaces": "tools/decode_roofline.py:36",
+        "launches": plaunches, "path": "phase 12, the probe's own",
+        "max_abs_err": 0, "ms": mixed_ms, "plain_ms": probe_plain_ms,
+        "bound_ms": max(p_bytes, p_ops),
+        "bound_by": "bytes" if p_bytes >= p_ops else "operations",
+        "library_ms": None,
+        "equal_to_plain": True,
+        "what": f"mixed chain, {PROBE_STEPS} steps, arena in device memory",
+        "plain_inputs": f"all {len(plain_sums)} chains of "
+                        f"{PROBE_CHECK_ITERS} steps",
+        "kernel_ms_on_plain_inputs": probe_check_ms,
+        "ns_a_step": {f"{kind} K={K} {'shared' if sh else 'device'}": v
+                      for (kind, K, sh), v in probe_ns.items()},
+    })
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

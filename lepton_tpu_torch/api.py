@@ -1,19 +1,22 @@
 """Top-level API: JPEG bytes <-> .lep bytes on one CUDA card.
 
 Encode: port of lepton_tpu.api.compress_tpu / batch_compress_tpu
-(:1023-1228) for baseline JPEGs and container version 1.  Pipeline: host
+(:1023-1228) for baseline JPEGs and containers v1, v2 (VPX lanes; the
+header zlib or brotli) and v3 (rANS lanes, brotli header).  Pipeline: host
 parse + Huffman decode to coefficient planes and handoffs, thread splits,
-then phase A, symbolization and the VPX coder on the device
-(kernels/batch_encode.py), then the stop-byte rule, the mux and the .lep
-header on the host.  The output is byte-identical to the JAX package's.
+then phase A, symbolization and the VPX or ANS coder on the device
+(kernels/batch_encode.py), then the VPX stop-byte rule or the rANS word
+order, the mux and the .lep header on the host.  The output is
+byte-identical to the JAX package's.
 
 Decode: port of lepton_tpu.api.decompress_tpu / batch_decompress_tpu
-(:427-589) for mode-Z containers of version 1.  Pipeline: host container
-read and demux, one launch of the VPX token decoder for every segment of
-every request (kernels/vpx_decoder.py), one copy of the planes to the host,
-then the Huffman re-emit (jpeg/recoder.py).  The output is the original
-JPEG, byte for byte.  A container the device path does not cover raises
-LeptonError; there is no host fallback.
+(:427-589) for mode-Z containers of versions 1 to 3.  Pipeline: host
+container read and demux, then for each coder (VPX lanes for v1 and v2,
+rANS lanes for v3) one launch of the token decoder for every segment of
+every request of that coder (kernels/vpx_decoder.py) and one copy of the
+planes to the host, then the Huffman re-emit (jpeg/recoder.py).  The
+output is the original JPEG, byte for byte.  A container the device path
+does not cover raises LeptonError; there is no host fallback.
 
 The entry points run on the card: device=None means "cuda", and without
 CUDA they raise.  Pass device="cpu" to run the plain PyTorch versions of
@@ -155,15 +158,20 @@ def _container(parsed, dec, splits, num_threads, streams,
 
 
 def batch_compress_device(jpeg_blobs, num_segments: int = 16,
-                          device=None, stats=None) -> list:
+                          device=None, stats=None, version: int = 1) -> list:
     """Encode many baseline JPEGs on one card: every image's segments are
     lanes of one coder kernel launch.  Returns the .lep bytes of each,
     identical to compress_device on it alone and to the JAX package's
     batch_compress_tpu.
 
+    version: the container version, 1 (zlib header) or 2 (brotli header)
+    with VPX lanes, or 3 (brotli header) with rANS lanes.
     stats: optional dict that receives the stage times and counts: parse_s
-    (host parse + Huffman), symbolize_s, assemble_s, coder_ms (CUDA events
-    on the card), finalize_s, mux_s, lanes, symbols, max_lane_symbols."""
+    (host parse + Huffman), symbolize_s, assemble_s, coder_ms or, for
+    version 3, ans_coder_ms (CUDA events on the card), finalize_s, mux_s,
+    lanes, symbols, max_lane_symbols."""
+    if version not in (1, 2, 3):
+        raise LeptonError(f"no container version {version}")
     stats = {} if stats is None else stats
     dev = _device(device)
     t = time.perf_counter()
@@ -175,9 +183,10 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
         metas.append((parsed, dec, splits, num_threads))
     stats["parse_s"] = time.perf_counter() - t
     all_streams = batch_encode.encode_images_device(
-        descs, template=_model_template_packed(), device=dev, stats=stats)
+        descs, version, template=_model_template_packed(), device=dev,
+        stats=stats)
     t = time.perf_counter()
-    out = [_container(parsed, dec, splits, num_threads, streams)
+    out = [_container(parsed, dec, splits, num_threads, streams, version)
            for (parsed, dec, splits, num_threads), streams
            in zip(metas, all_streams)]
     stats["mux_s"] = time.perf_counter() - t
@@ -185,10 +194,11 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
 
 
 def compress_device(jpeg_data: bytes, num_segments: int = 16,
-                    device=None) -> bytes:
+                    device=None, version: int = 1) -> bytes:
     """Encode one baseline JPEG on the card: the batch pipeline with a
     one-image batch, as compress_tpu is."""
-    return batch_compress_device([jpeg_data], num_segments, device)[0]
+    return batch_compress_device([jpeg_data], num_segments, device,
+                                 version=version)[0]
 
 
 def _decode_request(lep_data: bytes, i: int = 0):
@@ -197,7 +207,8 @@ def _decode_request(lep_data: bytes, i: int = 0):
     lepton_tpu.api._tpu_decode_request (:427-462) does, legacy files
     without an 'H' record included.  Returns (req, hdr, handoffs).  Raises
     LeptonError naming request i for what the device path does not cover:
-    mode Y, mode X, version 2 and above (brotli headers), 4 colours."""
+    mode Y, mode X, 4 colours, and version 2 and above when the brotli
+    libraries cannot be loaded."""
     if len(lep_data) < 28 or lep_data[:2] not in (C.LEPTON_HEADER,
                                                   C.UJG_HEADER):
         raise LeptonError(f"request {i}: not a .lep container")
@@ -208,9 +219,6 @@ def _decode_request(lep_data: bytes, i: int = 0):
     if mode == ord("X"):
         raise LeptonError(f"request {i}: mode-X (progressive) container is "
                           "not ported")
-    if version >= 2:
-        raise LeptonError(f"request {i}: container v{version} is not ported "
-                          "(brotli header)")
     try:
         hdr, mux_region = read_container(lep_data)
     except ContainerError as e:
@@ -261,59 +269,77 @@ def _reemit(hdr, handoffs, planes) -> bytes:
 
 
 def batch_decompress_device(leps, device=None, stats=None) -> list:
-    """Decode many .lep containers on one card: every segment of every
-    request is a lane of one decoder kernel launch, with each lane's
-    colour tables routed to its own request.  Returns the original JPEG
-    bytes of each, identical to decompress_device on it alone and to the
-    JAX package's batch_decompress_tpu.
+    """Decode many .lep containers on one card: the requests are grouped
+    by coder (rANS lanes for container v3, VPX lanes for v1 and v2, as
+    lepton_tpu.api.batch_decompress_tpu groups them, :496-536), and every
+    segment of every request of a group is a lane of one decoder kernel
+    launch, with each lane's colour tables routed to its own request.
+    Returns the original JPEG bytes of each, identical to
+    decompress_device on it alone and to the JAX package's
+    batch_decompress_tpu.
 
     Every request is read before anything is launched; one the device path
     does not cover, or one whose decode flags a stream inconsistency,
     raises LeptonError naming it.
 
     stats: optional dict that receives the stage times and counts: read_s
-    (container read and demux), plan_s (lane plan and upload), decoder_ms
-    (CUDA events on the card), d2h_s, recode_s, lanes, max_lane_blocks."""
+    (container read and demux), plan_s (lane plans and uploads),
+    decoder_ms (CUDA events on the card, both launches), vpx_decoder_ms
+    and ans_decoder_ms (each launch), d2h_s, recode_s, lanes,
+    max_lane_blocks."""
     stats = {} if stats is None else stats
     dev = _device(device)
     t = time.perf_counter()
     reqs = [_decode_request(lep, i) for i, lep in enumerate(leps)]
+    groups = {}
+    for i, (req, hdr, _) in enumerate(reqs):
+        groups.setdefault("ans" if hdr.version == 3 else "vpx", []).append(i)
     stats["read_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    plan = vpx_decoder.plan_decode([req for req, _, _ in reqs])
-    inputs = plan.to(dev)
     tpl = _model_template_packed()
     if tpl is not None:
         tpl = arena_from_template(tpl).to(dev)
-    batch_encode._sync(dev)
-    stats["plan_s"] = time.perf_counter() - t
-    stats["lanes"] = len(plan.lane_request)
-    stats["max_lane_blocks"] = int(np.bincount(
-        np.repeat(np.arange(len(plan.lanes)), plan.lanes[:, 1]),
-        weights=plan.rows[:, 2], minlength=1).max())
-    if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        coef, err = vpx_decoder.decode_lanes(**inputs, template=tpl)
-        end.record()
-        end.synchronize()
-        stats["decoder_ms"] = start.elapsed_time(end)
-    else:
+    for key in ("plan_s", "decoder_ms", "d2h_s", "lanes", "max_lane_blocks"):
+        stats[key] = 0
+    planes = [None] * len(reqs)
+    for coder, members in groups.items():
         t = time.perf_counter()
-        coef, err = vpx_decoder.decode_lanes(**inputs, template=tpl)
-        stats["decoder_ms"] = (time.perf_counter() - t) * 1e3
-    t = time.perf_counter()
-    coef, err = coef.cpu().numpy(), err.cpu().numpy()
-    stats["d2h_s"] = time.perf_counter() - t
+        plan = vpx_decoder.plan_decode([reqs[i][0] for i in members], coder)
+        inputs = plan.to(dev)
+        batch_encode._sync(dev)
+        stats["plan_s"] += time.perf_counter() - t
+        stats["lanes"] += len(plan.lane_request)
+        stats["max_lane_blocks"] = max(stats["max_lane_blocks"], int(
+            np.bincount(np.repeat(np.arange(len(plan.lanes)),
+                                  plan.lanes[:, 1]),
+                        weights=plan.rows[:, 2], minlength=1).max()))
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            coef, err = vpx_decoder.decode_lanes(**inputs, template=tpl)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t = time.perf_counter()
+            coef, err = vpx_decoder.decode_lanes(**inputs, template=tpl)
+            ms = (time.perf_counter() - t) * 1e3
+        stats[f"{coder}_decoder_ms"] = ms
+        stats["decoder_ms"] += ms
+        t = time.perf_counter()
+        coef, err = coef.cpu().numpy(), err.cpu().numpy()
+        stats["d2h_s"] += time.perf_counter() - t
+        del inputs
+        for i, res in zip(members, vpx_decoder.split_planes(plan, coef,
+                                                            err != 0)):
+            planes[i] = res
     t = time.perf_counter()
     out = []
-    for i, ((planes, bad), (_, hdr, handoffs)) in enumerate(
-            zip(vpx_decoder.split_planes(plan, coef, err != 0), reqs)):
+    for i, ((p, bad), (_, hdr, handoffs)) in enumerate(zip(planes, reqs)):
         if bad.any():
             raise LeptonError(f"request {i}: lepton stream inconsistent "
                               "(device decode)")
-        out.append(_reemit(hdr, handoffs, planes))
+        out.append(_reemit(hdr, handoffs, p))
     stats["recode_s"] = time.perf_counter() - t
     return out
 

@@ -1,10 +1,11 @@
-""".lep container reader and writer, format v1.
+""".lep container reader and writer, formats v1 to v3.
 
 Copy of lepton_tpu/container/format.py (write_ujpg, reference
 jpgcoder.cc:3779-4110; read_container / _parse_header_block,
-read_ujpg :4117-4360).  Only version 1 headers (zlib) are read and
-written: v2 and above compress the header with brotli, which this port does
-not carry yet, and raise ContainerError.
+read_ujpg :4117-4360).  Version 1 compresses the header block with zlib,
+version 2 and above with brotli (container/brotli_ffi.py); without the
+system brotli libraries a v2+ header raises ContainerError, and nothing
+falls back to zlib.
 
   magic(2) version(1) mode(1:'Z'/'X'/'Y') nthreads(1) zero(3) git(12)
   orig_size(LE4) | hdr_size(LE4) compressed_header | 'CMP' mux-streams
@@ -23,6 +24,7 @@ from typing import List, Optional
 
 from .. import constants as C
 from ..jpeg.decoder import ThreadHandoff
+from . import brotli_ffi
 from .handoff import deserialize_handoffs, serialize_handoffs
 
 
@@ -56,20 +58,32 @@ class LeptonHeader:
     pending_header: Optional[bytes] = None
 
 
+def _need_brotli(version: int) -> None:
+    if not brotli_ffi.available():
+        raise ContainerError(f"container v{version} needs brotli headers, "
+                             "and libbrotlienc/libbrotlidec are not "
+                             "available")
+
+
 def _compress_header(payload: bytes, version: int) -> bytes:
     if version == 1:
         return zlib.compress(payload, 9)
-    raise ContainerError(f"container v{version} needs brotli headers")
+    _need_brotli(version)
+    return brotli_ffi.compress(payload)
 
 
 def _decompress_header(payload: bytes, version: int) -> bytes:
     if version == 1:
         return zlib.decompress(payload)
-    raise ContainerError(f"container v{version} needs brotli headers")
+    _need_brotli(version)
+    try:
+        return brotli_ffi.decompress(payload)
+    except ValueError as e:
+        raise ContainerError(f"container v{version}: {e}") from e
 
 
 def build_header_block(hdr: LeptonHeader) -> bytes:
-    """The marker block that gets zlib compressed."""
+    """The marker block that gets zlib or brotli compressed."""
     out = bytearray()
     out += b"HDR"
     out += len(hdr.hdrdata).to_bytes(4, "little")

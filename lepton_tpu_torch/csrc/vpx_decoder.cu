@@ -1,9 +1,13 @@
-// vpx_decoder.cu -- per-segment VPX token decoder for Hopper (sm_90a).
+// vpx_decoder.cu -- per-segment token decoder for Hopper (sm_90a), with a
+// VPX reader (containers v1 and v2) and a rANS reader (container v3).
 //
 // Replaces lepton_tpu/kernels/pallas_decode.py::_build_kernel (the inner
-// `kernel`, :270-763, VPX reader; host side decode_segments_pallas /
-// decode_segments_pallas_multi).  For each lane (one segment of one .lep)
-// it reads the marker bit at probability 128, then for each row descriptor
+// `kernel`, :270-763, with coder="vpx" and coder="ans"; host side
+// decode_segments_pallas / decode_segments_pallas_multi).  The kernel is a
+// template on the reader, so the block-decoding body is one and the same
+// for both; vpx_decoder_launch picks the instantiation.  For each lane (one
+// segment of one .lep) the VPX reader reads the marker bit at probability
+// 128 (the rANS reader has none), then for each row descriptor
 // and each block of the row, in order: the 7x7 non-zero count (a 6-bit
 // tree), the 49 interior coefficients (aavrg-bucketed unary exponent, sign,
 // residual), the horizontal then the vertical edge (Lakhani prediction,
@@ -12,7 +16,9 @@
 // (reference decoder.cc:168-319, decode_one_edge :29-142, model.hh).  Every
 // read is an adaptive branch read-modify-write (vpx_branch.cuh, the same
 // rule and layout as vpx_coder.cu), from the identity arena or a trained
-// template.  A lane whose 7x7 count exceeds 49 sets its sticky err flag.
+// template; the VPX reader updates a branch by update_branch, the rANS
+// reader by update_branch_adv.  A lane whose 7x7 count exceeds 49 sets its
+// sticky err flag.
 //
 // Design: one CTA per lane; lanes are independent, so they run
 // concurrently (the TPU grid ran them one after another).  All threads of
@@ -34,8 +40,8 @@
 // branch, so the launch takes about as long as its longest lane's reads.
 // It moves few bytes (streams in, int16 planes out, the arena fill).
 //
-// Arithmetic follows the reference's C ints: a uint32 reader window,
-// truncating division for the Lakhani and DC predictions, int16 wraps on
+// Arithmetic follows the reference's C ints: a uint32 VPX reader window
+// and uint64 rANS states, truncating division for the Lakhani and DC predictions, int16 wraps on
 // stores, IDCT outputs, edge estimates and summaries.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -89,16 +95,22 @@ __device__ __forceinline__ int bitlen(int32_t v) {  // v >= 0
     return v > 0 ? 32 - __clz(v) : 0;
 }
 
-// The VPX bool reader with a 32-bit window (boolreader.hh:376-416).
-struct Reader {
+// The VPX bool reader with a 32-bit window (boolreader.hh:376-416), over
+// the lane's stream bytes, after the marker bit (vpx_reader_init).
+struct VpxReader {
     const uint8_t* p;
     int32_t len;
     int32_t pos;
     uint32_t value;
     uint32_t rng;
     int32_t count;
-    int32_t* arena;
-    int arena_size;
+
+    __device__ VpxReader(const void* data, int64_t lmax, int64_t s,
+                         int32_t dlen)
+        : p(static_cast<const uint8_t*>(data) + s * lmax), len(dlen), pos(0),
+          value(0), rng(255), count(-8) {
+        bit(128);
+    }
 
     __device__ __forceinline__ int bit(uint32_t prob) {
         if (count < 0) {
@@ -132,13 +144,69 @@ struct Reader {
         return b;
     }
 
+    static __device__ __forceinline__ int32_t update(int32_t packed, int b) {
+        return vpx::update_branch(packed, b);
+    }
+};
+
+// The two-state rANS forward reader (ans_bool_reader.hh, the rans64.hh
+// decode step; pallas_decode.py ans_step :330-360 and its init :436-440)
+// over the lane's little-endian uint32 words.  Native uint64_t states
+// replace the (hi, lo) int32 pairs and 16-bit limbs the TPU needed.  Words
+// past the end read as zero; there is no marker bit.
+struct AnsReader {
+    const uint32_t* w;
+    int32_t nwords;
+    int32_t pos;
+    uint64_t r0, r1;
+
+    __device__ AnsReader(const void* data, int64_t lmax, int64_t s,
+                         int32_t dlen)
+        : w(static_cast<const uint32_t*>(data) + s * lmax), nwords(dlen),
+          pos(4) {
+        r0 = word(0) | static_cast<uint64_t>(word(1)) << 32;
+        r1 = word(2) | static_cast<uint64_t>(word(3)) << 32;
+    }
+
+    __device__ __forceinline__ uint64_t word(int32_t k) const {
+        return k < nwords ? w[k] : 0;
+    }
+
+    __device__ __forceinline__ int bit(uint32_t prob) {
+        uint64_t x = r0;
+        r0 = r1;
+        const uint32_t cum = static_cast<uint32_t>(x) & 0xFF;
+        const int b = cum >= prob;
+        const uint32_t start = b ? prob : 0;
+        const uint32_t freq = b ? 256 - prob : prob;
+        x = freq * (x >> 8) + cum - start;
+        if (x < (1ull << 31)) {        // renormalise: one word, unsigned test
+            x = x << 32 | word(pos);
+            ++pos;
+        }
+        r1 = x;
+        return b;
+    }
+
+    static __device__ __forceinline__ int32_t update(int32_t packed, int b) {
+        return vpx::update_branch_adv(packed, b);
+    }
+};
+
+// Adaptive reads from the lane's model arena through reader R.
+template <class R>
+struct Model {
+    R r;
+    int32_t* arena;
+    int arena_size;
+
     // adaptive read of branch idx (clamped into the arena, as the TPU
-    // kernel clamps), then the branch update
+    // kernel clamps), then the branch update of R's coder
     __device__ __forceinline__ int read(int idx) {
         idx = min(max(idx, 0), arena_size - 1);
         const int32_t packed = arena[idx];
-        const int b = bit(vpx::branch_prob(packed));
-        arena[idx] = vpx::update_branch(packed, b);
+        const int b = r.bit(vpx::branch_prob(packed));
+        arena[idx] = R::update(packed, b);
         return b;
     }
 
@@ -254,8 +322,9 @@ __device__ void idct_ignore_dc(const int32_t* here, const int32_t* quant,
     }
 }
 
+template <class R>
 __global__ void __launch_bounds__(kThreads)
-vpx_decoder_kernel(const uint8_t* __restrict__ data, int64_t lmax,
+vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
                    const int32_t* __restrict__ dlen,
                    const int32_t* __restrict__ lanes,
                    const int32_t* __restrict__ rows,
@@ -285,8 +354,7 @@ vpx_decoder_kernel(const uint8_t* __restrict__ data, int64_t lmax,
     __syncthreads();
     if (threadIdx.x != 0) return;
 
-    Reader rd{data + s * lmax, dlen[s], 0, 0, 255, -8, a, arena_size};
-    rd.bit(128);                 // marker bit (vpx_reader_init)
+    Model<R> rd{R(data, lmax, s, dlen[s]), a, arena_size};
     int lane_err = 0;
     int32_t* lane_ring = ring + s * static_cast<int64_t>(ring_slots) * kSummary;
 
@@ -505,17 +573,26 @@ vpx_decoder_kernel(const uint8_t* __restrict__ data, int64_t lmax,
 
 extern "C" {
 
-// Launches one CTA per lane on `stream`; returns cudaGetLastError().
-int vpx_decoder_launch(const uint8_t* data, int64_t lmax, const int32_t* dlen,
+// Launches one CTA per lane on `stream` with the VPX reader (coder 0; data
+// uint8 [S, lmax] bytes) or the rANS reader (coder 1; data uint32
+// [S, lmax] words, dlen in words); returns cudaGetLastError().
+int vpx_decoder_launch(const void* data, int64_t lmax, const int32_t* dlen,
                        const int32_t* lanes, int64_t S, const int32_t* rows,
                        const int32_t* tables, const int32_t* luts,
                        const int32_t* tpl, int32_t* arena, int arena_size,
                        int32_t* ring, int ring_slots, int ring_width,
-                       int16_t* coef, int32_t* err, void* stream) {
-    vpx_decoder_kernel<<<static_cast<unsigned>(S), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        data, lmax, dlen, lanes, rows, tables, luts, tpl, arena, arena_size,
-        ring, ring_slots, ring_width, coef, err);
+                       int16_t* coef, int32_t* err, int coder, void* stream) {
+    const dim3 grid(static_cast<unsigned>(S));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (coder == 1) {
+        vpx_decoder_kernel<AnsReader><<<grid, kThreads, 0, st>>>(
+            data, lmax, dlen, lanes, rows, tables, luts, tpl, arena,
+            arena_size, ring, ring_slots, ring_width, coef, err);
+    } else {
+        vpx_decoder_kernel<VpxReader><<<grid, kThreads, 0, st>>>(
+            data, lmax, dlen, lanes, rows, tables, luts, tpl, arena,
+            arena_size, ring, ring_slots, ring_width, coef, err);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
-"""Batch encode on one card: coefficient planes -> per-segment VPX streams.
+"""Batch encode on one card: coefficient planes -> per-segment streams.
 
 Port of lepton_tpu/kernels/batch_encode.py::encode_images_device (:461-799)
-for VPX lanes (container v1).  The stages, in data-flow order:
+for VPX lanes (containers v1 and v2) and rANS lanes (container v3).  The
+stages, in data-flow order:
 
   1. copy each coefficient plane to the device as int16;
   2. symbolize it (kernels/symbolize.py) in row chunks, with the row above
@@ -10,10 +11,13 @@ for VPX lanes (container v1).  The stages, in data-flow order:
   3. compact each chunk's live symbols in emission order (a boolean mask
      keeps row-major order) and count them per row;
   4. fetch all per-row counts in one copy to the host;
-  5. assemble each lane (one per segment): the marker bit, the segment's
-     rows in plan_rows order, then the 32 stop bits, PAD after;
+  5. assemble each lane (one per segment): for VPX the marker bit, the
+     segment's rows in plan_rows order, then the 32 stop bits; for rANS
+     the rows alone (batch_encode.py:628, :635-649); PAD after;
   6. code all lanes of the batch in one launch of the VPX coder kernel
-     (kernels/vpx_coder.py), then apply the stop-byte rule on the host.
+     (kernels/vpx_coder.py) and apply the stop-byte rule on the host, or
+     in one launch of the ANS coder kernel (kernels/ans_coder.py) and
+     reverse its words on the host.
 
 The JAX package's 128-wide tiling, sort-based compactions, pool DP and int8
 coefficient transport answer TPU rules (serialized gathers, 128-lane
@@ -23,12 +27,14 @@ bytes are identical to the host coder's.
 from __future__ import annotations
 
 import time
+from functools import partial
 from typing import List
 
 import numpy as np
 import torch
 
 from ..model.tables import arena_from_template
+from .ans_coder import encode_streams_ans, finalize_ans
 from .encode_pipeline import plan_rows, segment_top_rows
 from .symbolize import symbolize_slice
 from .vpx_coder import FIXED_PROB, PAD, encode_streams, finalize
@@ -73,15 +79,18 @@ def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
     return torch.cat(parts_i), torch.cat(parts_b), torch.cat(counts)
 
 
-def assemble_lanes(images, device="cuda", stats=None):
-    """Stages 1-5: the framed symbol lanes of a batch.
+def assemble_lanes(images, device="cuda", stats=None, framed: bool = True):
+    """Stages 1-5: the symbol lanes of a batch.
 
     images: list of dicts with keys planes (int16 [H, W, 64] numpy),
     color_tables, mcuv, max_coded_heights, component_sizes, splits_y,
-    color_index (optional).  Returns (idx int32 [S, L], bit uint8 [S, L],
-    owners) on the device, where lane s codes segment owners[s][1] of
-    image owners[s][0].  stats: optional dict that receives symbolize_s,
-    assemble_s, lanes, symbols and max_lane_symbols."""
+    color_index (optional).  framed: VPX lanes (the marker bit before the
+    segment's symbols, the 32 stop bits after); False gives the unframed
+    lanes of rANS.  Returns (idx int32 [S, L], bit uint8 [S, L], owners)
+    on the device, where lane s codes segment owners[s][1] of image
+    owners[s][0], PAD after its symbols.  stats: optional dict that
+    receives symbolize_s, assemble_s, lanes, symbols and
+    max_lane_symbols."""
     dev = torch.device(device)
     stats = {} if stats is None else stats
     t = time.perf_counter()
@@ -130,17 +139,21 @@ def assemble_lanes(images, device="cuda", stats=None):
                     lane.append((int(row_off[r]), int(row_counts[r])))
             runs.append(lane)
             owners.append((d, s))
-    lengths = [1 + sum(n for _, n in lane) + STOP_BITS for lane in runs]
+    head, tail = (1, STOP_BITS) if framed else (0, 0)
+    lengths = [head + sum(n for _, n in lane) + tail for lane in runs]
     S, L = len(runs), max(lengths, default=0)
     idx = torch.full((S, L), PAD, dtype=torch.int32, device=dev)
     bit = torch.zeros((S, L), dtype=torch.uint8, device=dev)
     for s, lane in enumerate(runs):
-        n = lengths[s] - 1 - STOP_BITS
-        idx[s, 0] = FIXED_PROB                      # marker bit 0
+        n = lengths[s] - head - tail
+        if framed:
+            idx[s, 0] = FIXED_PROB                  # marker bit 0
+            idx[s, 1 + n:lengths[s]] = FIXED_PROB   # stop bits 0
         if lane:
-            idx[s, 1:1 + n] = torch.cat([sym_i[a:a + k] for a, k in lane])
-            bit[s, 1:1 + n] = torch.cat([sym_b[a:a + k] for a, k in lane])
-        idx[s, 1 + n:lengths[s]] = FIXED_PROB       # stop bits 0
+            idx[s, head:head + n] = torch.cat([sym_i[a:a + k]
+                                               for a, k in lane])
+            bit[s, head:head + n] = torch.cat([sym_b[a:a + k]
+                                               for a, k in lane])
     _sync(dev)
     stats["assemble_s"] = time.perf_counter() - t
     stats["lanes"] = S
@@ -157,31 +170,41 @@ def encode_images_device(images, version: int = 1, template=None,
     host coder.
 
     version: 1 or 2 (VPX streams; the version only selects the container
-    header compression).  template: optional packed uint32 [ARENA_SIZE]
-    trained-model start state (lepton_tpu.api._model_template_packed
-    layout) for every lane.  stats: optional dict that receives the stage
-    seconds and counts of assemble_lanes, coder_ms and finalize_s."""
-    if version not in (1, 2):
-        raise ValueError(f"version {version} lanes are not ported")
+    header compression) or 3 (rANS streams).  template: optional packed
+    uint32 [ARENA_SIZE] trained-model start state
+    (lepton_tpu.api._model_template_packed layout) for every lane.  stats:
+    optional dict that receives the stage seconds and counts of
+    assemble_lanes, the coder kernel's time on the card (coder_ms for VPX
+    lanes, ans_coder_ms for rANS lanes) and finalize_s."""
+    if version not in (1, 2, 3):
+        raise ValueError(f"no version {version} lanes")
     stats = {} if stats is None else stats
     dev = torch.device(device)
-    idx, bit, owners = assemble_lanes(images, dev, stats)
+    ans = version == 3
+    idx, bit, owners = assemble_lanes(images, dev, stats, framed=not ans)
     tpl = None if template is None else arena_from_template(template).to(dev)
+    if ans:
+        # every symbol of an unframed lane is a branch; PAD follows them
+        nsyms = (idx != PAD).sum(1, dtype=torch.int32)
+        run = partial(encode_streams_ans, idx, bit, nsyms, tpl)
+    else:
+        run = partial(encode_streams, idx, bit, tpl)
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out, nbytes = encode_streams(idx, bit, tpl)
+        out, nout = run()
         end.record()
         end.synchronize()
-        stats["coder_ms"] = start.elapsed_time(end)
+        ms = start.elapsed_time(end)
     else:
         t = time.perf_counter()
-        out, nbytes = encode_streams(idx, bit, tpl)
-        stats["coder_ms"] = (time.perf_counter() - t) * 1e3
+        out, nout = run()
+        ms = (time.perf_counter() - t) * 1e3
+    stats["ans_coder_ms" if ans else "coder_ms"] = ms
     del idx, bit
     t = time.perf_counter()
-    streams = finalize(out, nbytes)
+    streams = finalize_ans(out, nout) if ans else finalize(out, nout)
     result = [[] for _ in images]
     for (d, _), st in zip(owners, streams):
         result[d].append(st)

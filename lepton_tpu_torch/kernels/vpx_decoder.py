@@ -1,21 +1,24 @@
-"""Per-segment VPX token decode: .lep streams -> int16 coefficient planes.
+"""Per-segment token decode: .lep streams -> int16 coefficient planes.
 
 Port of lepton_tpu/kernels/pallas_decode.py (the kernel of _build_kernel
-:270-763, VPX reader only, and its host side decode_segments_pallas /
+:270-763 with its VPX reader, coder="vpx", and its two-state rANS reader,
+coder="ans", and their host side decode_segments_pallas /
 decode_segments_pallas_multi :784-979).  The kernel is csrc/vpx_decoder.cu,
-built with nvcc at first use into build/ and bound with ctypes
-(kernels/cuda_build.py).  decode_lanes launches it for CUDA tensors and
-runs the plain PyTorch version, decode_lanes_plain, only for CPU tensors.
+a template on the reader, built with nvcc at first use into build/ and
+bound with ctypes (kernels/cuda_build.py).  decode_lanes launches it for
+CUDA tensors and runs the plain PyTorch version, decode_lanes_plain, only
+for CPU tensors.
 
-The host plan (plan_decode) turns one or many requests into the kernel's
-inputs: every segment of every request is one lane; each lane is a list of
-row descriptors in plan_rows order; the stream bytes are padded into one
-uint8 [S, Lmax] buffer; each request's colour tables are rows of one table
-array.  Every lane writes its rows straight into one zero-initialised int16
-buffer that holds every plane of every request, so a row cut by early EOF
-stays zero.  What the Mosaic kernel needed is left out: the shape buckets,
-the 64-wide width bucket, dummy lanes, 128-lane rows and the [S, n_flat]
-slab with its host scatter.
+The host plan (plan_decode) turns one or many requests of one coder into
+the kernel's inputs: every segment of every request is one lane; each lane
+is a list of row descriptors in plan_rows order; the streams are padded
+into one [S, Lmax] buffer, of bytes for VPX lanes (containers v1 and v2)
+and of little-endian uint32 words for rANS lanes (container v3); each
+request's colour tables are rows of one table array.  Every lane writes its
+rows straight into one zero-initialised int16 buffer that holds every plane
+of every request, so a row cut by early EOF stays zero.  What the Mosaic
+kernel needed is left out: the shape buckets, the 64-wide width bucket,
+dummy lanes, 128-lane rows and the [S, n_flat] slab with its host scatter.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from .. import constants as C
 from ..model.tables import (ARENA_SIZE, IDENTITY_BRANCH, TABLE_OFFSETS,
                             TABLE_STRIDES)
 from . import cuda_build
+from .ans_coder import RANS64_L, next_state_adv
 from .contexts import bit_length, idct_blocks
 from .encode_pipeline import plan_rows
 from .vpx_coder import _branch_update
@@ -44,6 +48,8 @@ ROW_FIELDS = ("comp", "ci", "width", "plane_width", "has_above", "ctab",
 LANE_FIELDS = ("row0", "nrows", "tab0", "ntab")
 # colour table rows: quant, icos_x, icos_y, min_noise_threshold (raster)
 TABLE_ROWS = 4
+# the kernel's reader for each coder (vpx_decoder_launch's `coder`)
+CODERS = {"vpx": 0, "ans": 1}
 
 # model layout in the LUT from LUT_LAYOUT on: each table's offset, then its
 # strides but the last (csrc/vpx_decoder.cu reads them in this order)
@@ -76,8 +82,9 @@ def build_luts() -> np.ndarray:
 @dataclass
 class DecodePlan:
     """The kernel's inputs for a batch of requests, on the host."""
-    data: np.ndarray        # uint8 [S, Lmax + 4], streams zero-padded
-    dlen: np.ndarray        # int32 [S]
+    data: np.ndarray        # vpx: uint8 [S, Lmax + 4], streams zero-padded;
+    #                         ans: int32 [S, max(Lmax, 4)], LE uint32 words
+    dlen: np.ndarray        # int32 [S]: stream bytes (vpx) or words (ans)
     lanes: np.ndarray       # int32 [S, 4]: LANE_FIELDS
     rows: np.ndarray        # int32 [R, 7]: ROW_FIELDS
     tables: np.ndarray      # int32 [T, 4, 64]: TABLE_ROWS per colour table
@@ -86,9 +93,10 @@ class DecodePlan:
     n_blocks: int           # blocks of every plane of every request
     planes: list            # per request: [(block offset, H, W)] per comp
     lane_request: list      # request index of each lane
+    coder: str = "vpx"      # every lane's: "vpx" or "ans"
 
     def to(self, device) -> dict:
-        """The tensors of decode_lanes on `device`."""
+        """The arguments of decode_lanes on `device`."""
         dev = torch.device(device)
         return dict(
             data=torch.as_tensor(self.data, device=dev),
@@ -97,10 +105,16 @@ class DecodePlan:
             rows=torch.as_tensor(self.rows, device=dev),
             tables=torch.as_tensor(self.tables, device=dev),
             ring_width=self.ring_width, ring_comps=self.ring_comps,
-            n_blocks=self.n_blocks)
+            n_blocks=self.n_blocks, coder=self.coder)
 
 
-def plan_decode(requests) -> DecodePlan:
+def _ans_words(stream: bytes) -> np.ndarray:
+    """A v3 stream as little-endian uint32 words, short trailing bytes
+    zero-filled (pallas_decode.py:899-913, like ANSReader)."""
+    return np.frombuffer(stream + b"\x00" * (-len(stream) % 4), "<u4")
+
+
+def plan_decode(requests, coder: str = "vpx") -> DecodePlan:
     """Plan many requests' segments as the lanes of one kernel launch.
 
     Each request is a dict with keys streams, plane_shapes, color_tables,
@@ -109,7 +123,10 @@ def plan_decode(requests) -> DecodePlan:
     .decode_segments_pallas_multi).  Row descriptors as in
     decode_segments_pallas_multi (:858-896): has_above is false on the
     first row of each component within a segment; a row cut by early EOF
-    decodes min(W, component_sizes[c] - y * W) blocks."""
+    decodes min(W, component_sizes[c] - y * W) blocks.  coder: "vpx" for
+    the streams of containers v1 and v2, "ans" for those of v3."""
+    if coder not in CODERS:
+        raise ValueError(f"no {coder!r} reader")
     rows, lanes, streams, tables, planes, lane_request = [], [], [], [], [], []
     n_blocks = 0
     ring_width, ring_comps = 1, 1
@@ -155,17 +172,23 @@ def plan_decode(requests) -> DecodePlan:
             streams.append(stream)
             lane_request.append(ri)
     S = len(streams)
-    lmax = max([len(b) for b in streams], default=0)
-    data = np.zeros((S, lmax + 4), np.uint8)
+    if coder == "ans":
+        streams = [_ans_words(b) for b in streams]
+        data = np.zeros((S, max([len(w) for w in streams] + [4])), np.uint32)
+    else:
+        streams = [np.frombuffer(b, np.uint8) for b in streams]
+        data = np.zeros((S, max([len(b) for b in streams], default=0) + 4),
+                        np.uint8)
     for s, b in enumerate(streams):
-        data[s, :len(b)] = np.frombuffer(b, np.uint8)
+        data[s, :len(b)] = b
     return DecodePlan(
-        data=data, dlen=np.asarray([len(b) for b in streams], np.int32),
+        data=data.view(np.int32) if coder == "ans" else data,
+        dlen=np.asarray([len(b) for b in streams], np.int32),
         lanes=np.asarray(lanes, np.int32).reshape(S, len(LANE_FIELDS)),
         rows=np.asarray(rows, np.int32).reshape(-1, len(ROW_FIELDS)),
         tables=np.asarray(tables, np.int32).reshape(-1, TABLE_ROWS, 64),
         ring_width=ring_width, ring_comps=ring_comps, n_blocks=n_blocks,
-        planes=planes, lane_request=lane_request)
+        planes=planes, lane_request=lane_request, coder=coder)
 
 
 def split_planes(plan: DecodePlan, coef, err) -> list:
@@ -192,7 +215,7 @@ def _get_lib():
             lib = cuda_build.load("vpx_decoder")
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.vpx_decoder_launch.argtypes = [
-                p, i64, p, p, i64, p, p, p, p, p, i, p, i, i, p, p, p]
+                p, i64, p, p, i64, p, p, p, p, p, i, p, i, i, p, p, i, p]
             lib.vpx_decoder_launch.restype = i
             lib.vpx_decoder_error_string.argtypes = [i]
             lib.vpx_decoder_error_string.restype = ctypes.c_char_p
@@ -201,11 +224,15 @@ def _get_lib():
 
 
 def _check(data, dlen, lanes, rows, tables, ring_width, ring_comps,
-           n_blocks, template) -> None:
+           n_blocks, template, coder) -> None:
     """Device, dtype, shape and index checks: the kernel indexes every
     buffer unchecked."""
     dev = data.device
-    for name, t, dt in (("data", data, torch.uint8), ("dlen", dlen, torch.int32),
+    if coder not in CODERS:
+        raise ValueError(f"no {coder!r} reader")
+    ans = coder == "ans"
+    for name, t, dt in (("data", data, torch.int32 if ans else torch.uint8),
+                        ("dlen", dlen, torch.int32),
                         ("lanes", lanes, torch.int32),
                         ("rows", rows, torch.int32),
                         ("tables", tables, torch.int32)):
@@ -224,8 +251,11 @@ def _check(data, dlen, lanes, rows, tables, ring_width, ring_comps,
     ln = lanes.cpu().numpy().astype(np.int64)
     rw = rows.cpu().numpy().astype(np.int64)
     dl = dlen.cpu().numpy()
-    if S and (dl.min() < 0 or dl.max() > data.shape[1] - 4):
-        raise ValueError("dlen must lie in [0, Lmax - 4]")
+    # the VPX reader may fetch 4 bytes past dlen; the rANS reader reads no
+    # word at or past dlen
+    if S and (dl.min() < 0 or dl.max() > data.shape[1] - (0 if ans else 4)):
+        raise ValueError("dlen must lie in [0, Lmax - 4] (bytes) or "
+                         "[0, Lmax] (words)")
     row0, nrows, tab0, ntab = ln.T if S else np.zeros((4, 0), np.int64)
     if S and (nrows.min() < 0 or nrows.sum() != len(rw)
               or (row0 != np.cumsum(nrows) - nrows).any()
@@ -250,22 +280,27 @@ def _check(data, dlen, lanes, rows, tables, ring_width, ring_comps,
 def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
                  rows: torch.Tensor, tables: torch.Tensor, ring_width: int,
                  ring_comps: int, n_blocks: int,
-                 template: Optional[torch.Tensor] = None):
+                 template: Optional[torch.Tensor] = None,
+                 coder: str = "vpx"):
     """Decode every lane of a DecodePlan (DecodePlan.to gives the inputs).
 
     template: optional int32 [ARENA_SIZE] start arena in the coder layout
     (model.tables.arena_from_template); default: every branch (1, 1, 128).
+    coder: the streams' reader, "vpx" (bytes) or "ans" (words).
     Returns (coef int16 [n_blocks, 64], err int32 [S]) on the input's
     device: every plane of every request, raster coefficients per block,
     and each lane's sticky stream-inconsistency flag.  CUDA tensors run
-    the kernel; CPU tensors run the plain version."""
+    the kernel (each launch with the VPX reader counts in
+    decode_lanes.launches, each with the rANS reader in
+    decode_lanes.ans_launches); CPU tensors run the plain version."""
     if data.device.type == "cpu":
         return decode_lanes_plain(data, dlen, lanes, rows, tables,
-                                  ring_width, ring_comps, n_blocks, template)
+                                  ring_width, ring_comps, n_blocks, template,
+                                  coder)
     if data.device.type != "cuda":
-        raise ValueError(f"no VPX decoder for device {data.device}")
+        raise ValueError(f"no token decoder for device {data.device}")
     _check(data, dlen, lanes, rows, tables, ring_width, ring_comps,
-           n_blocks, template)
+           n_blocks, template, coder)
     dev = data.device
     S = data.shape[0]
     coef = torch.zeros((n_blocks, 64), dtype=torch.int16, device=dev)
@@ -286,9 +321,12 @@ def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
         rows.data_ptr(), tables.data_ptr(), luts.data_ptr(),
         None if template is None else template.data_ptr(),
         arena.data_ptr(), ARENA_SIZE, ring.data_ptr(), ring_comps * ring_width,
-        ring_width, coef.data_ptr(), err.data_ptr(),
+        ring_width, coef.data_ptr(), err.data_ptr(), CODERS[coder],
         torch.cuda.current_stream(dev).cuda_stream)
-    decode_lanes.launches += 1
+    if coder == "ans":
+        decode_lanes.ans_launches += 1
+    else:
+        decode_lanes.launches += 1
     if rc:
         raise RuntimeError("vpx_decoder launch failed: "
                            + lib.vpx_decoder_error_string(rc).decode())
@@ -296,6 +334,7 @@ def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
 
 
 decode_lanes.launches = 0
+decode_lanes.ans_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -368,17 +407,10 @@ class _Lanes:
             + torch.where(avail < want, LOTS_OF_BITS, 0), self.count)
         self.pos = torch.where(need, self.pos + take, self.pos)
 
-    def read(self, idx, active):
-        """One read on the active lanes; idx int64 [S] is the branch of
-        each lane (clamped into the arena), None for probability 128 with
-        no update.  Returns the bits, 0 on inactive lanes."""
+    def _bit(self, prob, active):
+        """One bool read at prob on the active lanes: the bits, False on
+        inactive lanes."""
         self._refill(active)
-        if idx is None:
-            prob = 128
-        else:
-            flat = self.base + idx.clamp(0, ARENA_SIZE - 1)
-            packed = torch.take(self.arena, flat)
-            prob = (packed >> 16) & 0xFF
         split = (self.rng * prob + 256 - prob) >> 8
         big = split << 24
         bit = (self.value >= big) & active
@@ -387,7 +419,19 @@ class _Lanes:
         self.value = ((self.value - big * bit) << sh) & 0xFFFFFFFF
         self.rng = torch.where(active, rng2 << sh, self.rng)
         self.count = self.count - sh
-        bit = bit.to(torch.int64)
+        return bit
+
+    def read(self, idx, active):
+        """One read on the active lanes; idx int64 [S] is the branch of
+        each lane (clamped into the arena), None for probability 128 with
+        no update.  Returns the bits, 0 on inactive lanes."""
+        if idx is None:
+            prob = 128
+        else:
+            flat = self.base + idx.clamp(0, ARENA_SIZE - 1)
+            packed = torch.take(self.arena, flat)
+            prob = (packed >> 16) & 0xFF
+        bit = self._bit(prob, active).to(torch.int64)
         if idx is not None:
             new = self.next[((packed & 0xFFFF) << 1) | bit]
             self.arena.view(-1)[flat] = torch.where(active, new, packed)
@@ -431,6 +475,43 @@ class _Lanes:
         return sbit, acc
 
 
+class _AnsLanes(_Lanes):
+    """The rANS readers and model arenas of S lanes, advanced together,
+    with the interface of _Lanes (pallas_decode.py ans_step :330-360, init
+    :436-440): two alternating states a lane, the word at pos shifted in
+    when a state drops below 2^31, words past the end read as zero, and
+    the adv update rule.  The states are uint64 held in int64: products
+    and sums wrap alike, x >> 8 masks off the sign, and the renormalisation
+    test is unsigned."""
+
+    def __init__(self, data, dlen, template):
+        super().__init__(data, dlen, template)
+        self.data = data.to(torch.int64) & 0xFFFFFFFF
+        self.next = next_state_adv(data.device)
+        w = [self._word(torch.full_like(self.pos, k)) for k in range(4)]
+        self.r0 = w[0] | (w[1] << 32)
+        self.r1 = w[2] | (w[3] << 32)
+        self.pos = torch.full_like(self.pos, 4)
+
+    def _word(self, k):
+        w = self.data[self.lanes, k.clamp(0, self.data.shape[1] - 1)]
+        return torch.where(k < self.dlen, w, 0)
+
+    def _bit(self, prob, active):
+        x = self.r0
+        cum = x & 0xFF
+        bit = cum >= prob
+        start = torch.where(bit, prob, 0)
+        freq = torch.where(bit, 256 - prob, prob)
+        x = freq * ((x >> 8) & ((1 << 56) - 1)) + cum - start
+        renorm = (x >= 0) & (x < RANS64_L)
+        x = torch.where(renorm, (x << 32) | self._word(self.pos), x)
+        self.pos = torch.where(active & renorm, self.pos + 1, self.pos)
+        self.r0 = torch.where(active, self.r1, self.r0)
+        self.r1 = torch.where(active, x, self.r1)
+        return bit & active
+
+
 def _signed(length, sbit, magnitude):
     v = magnitude | (1 << (length - 1).clamp(min=0))
     return torch.where(sbit == 0, -v, v)
@@ -460,7 +541,8 @@ def _lane_blocks(lanes: np.ndarray, rows: np.ndarray):
 
 
 def decode_lanes_plain(data, dlen, lanes, rows, tables, ring_width: int,
-                       ring_comps: int, n_blocks: int, template=None):
+                       ring_comps: int, n_blocks: int, template=None,
+                       coder: str = "vpx"):
     """The kernel's plain PyTorch version, same contract as decode_lanes.
 
     A lockstep loop over blocks, vectorized over lanes with masks, with
@@ -471,7 +553,7 @@ def decode_lanes_plain(data, dlen, lanes, rows, tables, ring_width: int,
     summaries, the int32 Lakhani sum) and truncating divisions where it
     truncates."""
     _check(data, dlen, lanes, rows, tables, ring_width, ring_comps,
-           n_blocks, template)
+           n_blocks, template, coder)
     dev = data.device
     i64 = torch.int64
     S = data.shape[0]
@@ -491,15 +573,16 @@ def decode_lanes_plain(data, dlen, lanes, rows, tables, ring_width: int,
     rows64 = rows.to(i64)
     tabs = tables.to(i64)
 
-    rd = _Lanes(data, dlen, template)
+    rd = (_AnsLanes if coder == "ans" else _Lanes)(data, dlen, template)
     coef = torch.zeros((n_blocks + 1, 64), dtype=torch.int16, device=dev)
     ring = torch.zeros((S, ring_comps * ring_width, SUMMARY), dtype=i64,
                        device=dev)
     err = torch.zeros(S, dtype=torch.bool, device=dev)
     if S == 0:
         return coef[:n_blocks], err.to(torch.int32)
-    # marker bit (vpx_reader_init), probability 128
-    rd.read(None, torch.ones(S, dtype=torch.bool, device=dev))
+    if coder == "vpx":
+        # marker bit (vpx_reader_init), probability 128
+        rd.read(None, torch.ones(S, dtype=torch.bool, device=dev))
 
     zeros64 = torch.zeros((S, 64), dtype=i64, device=dev)
     left, al = zeros64, zeros64

@@ -1,5 +1,6 @@
 """The port's decode entry points on the CPU: legacy containers, batches,
-early-EOF truncation, and the containers the device path refuses.
+early-EOF truncation, v2 and v3 containers, and the containers the device
+path refuses.
 
 decompress_device / batch_decompress_device with device="cpu" run the
 plain PyTorch version of the decode kernel; they must give back the
@@ -19,9 +20,11 @@ from PIL import Image
 jax = pytest.importorskip("jax")
 
 import lepton_tpu.api as japi  # noqa: E402
+from lepton_tpu.container.format import read_container as jread  # noqa: E402
 from lepton_tpu_torch import api  # noqa: E402
+from lepton_tpu_torch.container import brotli_ffi  # noqa: E402
 from lepton_tpu_torch.container.format import (  # noqa: E402
-    build_header_block, read_container, write_container)
+    ContainerError, build_header_block, read_container, write_container)
 from lepton_tpu_torch.container.mux import MuxReader, mux_streams  # noqa: E402
 from lepton_tpu_torch.kernels import vpx_decoder  # noqa: E402
 from test_torch_encode import _jpeg  # noqa: E402
@@ -95,17 +98,22 @@ def _cmyk_jpeg() -> bytes:
     return buf.getvalue()
 
 
-@pytest.mark.parametrize("kind", ["mode_y", "mode_x", "v2", "four_colors",
-                                  "corrupt"])
-def test_unsupported_raises(kind):
+@pytest.mark.parametrize("kind", ["mode_y", "mode_x", "v2", "v3",
+                                  "four_colors", "corrupt"])
+def test_unsupported_raises(kind, monkeypatch):
+    """Each request the device path does not cover raises LeptonError
+    naming it; v2 and v3 containers raise so only where the brotli
+    libraries cannot be loaded (nothing falls back to zlib)."""
     data = _jpeg(32, 32, seed=4, quality=80, subsampling=2)
     if kind == "mode_y":
         lep, reason = japi.generic_compress(b"not a jpeg"), "mode-Y"
     elif kind == "mode_x":
         prog = _jpeg(32, 32, seed=4, quality=80, progressive=True)
         lep, reason = japi.compress(prog, allow_progressive=True), "mode-X"
-    elif kind == "v2":
-        lep, reason = japi.compress(data, version=2), "v2"
+    elif kind in ("v2", "v3"):
+        lep = japi.compress(data, version=int(kind[1]))
+        reason = f"{kind} needs brotli"
+        monkeypatch.setattr(brotli_ffi, "available", lambda: False)
     elif kind == "four_colors":
         lep = japi.compress(_cmyk_jpeg(), allow_four_colors=True)
         reason = "4 colours"
@@ -116,6 +124,36 @@ def test_unsupported_raises(kind):
     good = japi.compress(data)
     with pytest.raises(api.LeptonError, match=f"request 1: .*{reason}"):
         api.batch_decompress_device([good, lep], device="cpu")
+
+
+@pytest.mark.parametrize("version", [2, 3])
+@pytest.mark.parametrize("source", ["host", "port"])
+def test_versions_round_trip(version, source):
+    """v2 (VPX lanes, brotli header) and v3 (rANS lanes, brotli header)
+    files from the host compress and from compress_device decode back to
+    the original JPEG; the header fields read as the JAX package reads
+    them."""
+    data = _jpeg(48, 32, seed=12, quality=85, subsampling=2)
+    if source == "host":
+        lep = japi.compress(data, max_threads=2, min_threads=2,
+                            version=version)
+    else:
+        lep = api.compress_device(data, device="cpu", version=version)
+    hdr, mux = read_container(lep)
+    jhdr, jmux = jread(lep)
+    assert hdr.version == version and mux == jmux
+    assert hdr.hdrdata == jhdr.hdrdata and hdr.padbit == jhdr.padbit
+    assert api.decompress_device(lep, device="cpu") == data
+
+
+def test_brotli_missing_refuses_to_write(monkeypatch):
+    """Without the brotli libraries a v2+ header raises ContainerError; v1
+    (zlib) is unaffected."""
+    data = _jpeg(16, 16, seed=7, quality=80)
+    monkeypatch.setattr(brotli_ffi, "available", lambda: False)
+    with pytest.raises(ContainerError, match="brotli"):
+        api.compress_device(data, device="cpu", version=3)
+    assert api.compress_device(data, device="cpu") == japi.compress(data)
 
 
 def test_runs_on_cuda_or_raises(monkeypatch):
