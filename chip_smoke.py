@@ -6,21 +6,28 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, before the result line):
-  1. build the four kernels with nvcc into build/, one nvcc a source, all
-     started together: the VPX coder (csrc/vpx_coder.cu), the token
-     decoder with its VPX and rANS readers (csrc/vpx_decoder.cu, phase 5),
-     the ANS coder (csrc/ans_coder.cu, phase 8) and the roofline probe
-     (csrc/decode_roofline.cu, phase 12);
-  2. hold the VPX coder against its plain PyTorch version on CUDA tensors:
-     adversarial streams (branch reuse, a long carry chain), the same under
-     a trained-template start arena, and a framed 20k-symbol prefix of
-     every lane of the full-size batch of phase 4;
+  1. build the five kernel sources with nvcc into build/, one nvcc a
+     source, all started together: the encode coders' probability stage
+     (csrc/branch_probs.cu: run_heads and walk_runs) and their walks,
+     VPX (csrc/vpx_coder.cu) and rANS (csrc/ans_coder.cu, phase 8), the
+     token decoder with its VPX and rANS readers (csrc/vpx_decoder.cu,
+     phase 5) and the roofline probe (csrc/decode_roofline.cu, phase 12);
+  2. hold the VPX coder's kernels against their plain PyTorch versions on
+     CUDA tensors, kernel by kernel (run_heads and walk_runs on the
+     grouped keys, then the walk on their probabilities) and whole:
+     adversarial streams (branch reuse, a long carry chain), the same
+     under a trained-template start arena, the stage lanes (empty,
+     one-symbol, odd and even lanes, FIXED_PROB and PAD slots, one branch
+     past both count overflows, a template's prob-0 branch), and a framed
+     20k-symbol prefix of every lane of the full-size batch of phase 4;
   3. encode small images on cuda and on cpu: equal .lep bytes;
   4. the main path: batch_compress_device on four synthetic 12 MP
      4032x3024 4:2:0 q90 JPEGs, 16 segments each (64 coder lanes), with the
-     kernel's launch count read around it; image 0 alone must give the
-     same bytes.  Then the coder kernel is timed again on all 64 lanes and
-     on the longest lane alone.
+     launch counts of the probability stage's two kernels and the VPX walk
+     read around it; image 0 alone must give the same bytes.  Then the
+     coder is timed again on all 64 lanes and on the longest lane alone,
+     each split into sort, probability stage (run_heads, walk_runs) and
+     walk, with the longest run;
   5. (the decoder's build is part of phase 1)
   6. hold the decoder against its plain PyTorch version on CUDA tensors:
      small JPEGs encoded on the card with 1, 2 and 4 segments, from the
@@ -35,19 +42,23 @@ Phases (any failure exits non-zero, before the result line):
      and held against its plain version on all 64 lanes of the main path,
      each cut to its first rows of a few dozen blocks, with plane widths,
      output offsets, ring and plane sizes as the main path gives them;
-  8. hold the ANS coder against its plain version on CUDA tensors:
-     adversarial lanes (empty, one symbol, odd and even counts, one branch
-     past both count overflows, a long lane), the same from the template,
-     a template's prob-0 branch (a 1 bit there codes; a 0 bit, freq 0,
-     raises as in the plain version), and an unframed 10k-symbol prefix of
-     all 64 v3 lanes of phase 9;
+  8. hold the ANS coder's kernels against their plain versions on CUDA
+     tensors, kernel by kernel (run_heads and walk_runs under the adv rule,
+     then the reverse walk on their probabilities) and whole: adversarial
+     lanes (empty, one symbol, odd and even counts, one branch past both
+     count overflows, a long lane), the same from the template, the stage
+     lanes, a template's prob-0 branch (a 1 bit there codes; a 0 bit,
+     freq 0, raises as in the plain version), and an unframed 10k-symbol
+     prefix of all 64 v3 lanes of phase 9;
   9. the v3 main path: batch_compress_device(version=3) on phase 4's four
-     JPEGs, with the ANS coder's launches read around it (one); image 0
-     alone gives the same bytes; small images give equal v2 and v3 bytes on
-     cuda and cpu; then batch_decompress_device on the four v3 files, with
-     the readers' launches read around it (one of the rANS reader), gives
-     back every original JPEG byte for byte.  Then both v3 kernels are
-     timed again on all 64 lanes and on the longest lane alone;
+     JPEGs, with the launches of the probability stage's two kernels and
+     the rANS walk read around it (one each); image 0 alone gives the
+     same bytes; small images give equal v2 and v3 bytes on cuda and cpu;
+     then batch_decompress_device on the four v3 files, with the readers'
+     launches read around it (one of the rANS reader), gives back every
+     original JPEG byte for byte.  Then the ANS coder (split into sort,
+     probability stage and walk) and the rANS reader are timed again on
+     all 64 lanes and on the longest lane alone;
  10. hold the rANS reader against its plain version: small v3 files with
      1, 2 and 4 segments, one from the template, and phase 9's 64 lanes
      cut to one row a component of a dozen blocks;
@@ -61,6 +72,7 @@ and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
+import contextlib
 import io
 import json
 import os
@@ -76,13 +88,15 @@ SEED = 20240601
 PREFIX = 20000                 # symbols per lane in the phase-2 prefix cut
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_SCALAR_OPS_PER_S = 67e12  # fp32 outside the tensor cores
-CODER_OPS_PER_SYMBOL = 30      # integer ops of one coded symbol, roughly
+WALK_OPS_PER_SYMBOL = 15       # integer ops of one VPX-coded symbol, roughly
+PROBS_OPS_PER_SYMBOL = 15      # integer ops of one branch update, roughly
+HEADS_OPS_PER_KEY = 4          # integer ops of one key's run-start test
 DECODER_OPS_PER_READ = 40      # integer ops of one decoded read, roughly
 STOP_BITS = 32                 # coded after each lane's last symbol
 CUT_ROWS, CUT_WIDTH = 2, 24    # phase-7 cut of the main path's lanes
 ANS_PREFIX = 10000             # symbols per lane in the phase-8 prefix cut
 ANS_CUT_ROWS, ANS_CUT_WIDTH = 1, 12   # phase-10 cut of the v3 lanes
-ANS_CODER_OPS_PER_SYMBOL = 60  # integer ops of one symbol, both passes
+ANS_WALK_OPS_PER_SYMBOL = 20   # integer ops of one rANS-coded symbol
 PROBE_CHECK_ITERS = 2000       # steps of the probe's checksum holds
 PROBE_STEPS = 1 << 20          # steps of each timed probe chain
 
@@ -165,6 +179,42 @@ def ans_adversarial_segments(long_lane: int = 32000):
     return segments
 
 
+PROB0_BRANCH = 7               # stage_template's branch of prob byte 0
+
+
+def stage_segments(long_lane: int = 3000):
+    """Segments that stress the probability stage and both walks: empty,
+    one symbol (PROB0_BRANCH first met by a 1 bit), odd and even counts
+    with heavy branch reuse and FIXED_PROB and PAD slots among them, one
+    branch driven past both count overflows (through the never-seen
+    saturation from the identity), and a longer lane of many branches."""
+    from lepton_tpu_torch.kernels.vpx_coder import FIXED_PROB, PAD
+    from lepton_tpu_torch.model.tables import ARENA_SIZE
+    rng = np.random.default_rng(SEED + 1)
+    segments = [([], []), ([PROB0_BRANCH], [1])]
+    for n in (1201, 1200):
+        idx = rng.integers(10, 50, n)
+        idx[rng.random(n) < 0.1] = FIXED_PROB
+        idx[rng.random(n) < 0.05] = PAD
+        segments.append((idx.tolist(), rng.integers(0, 2, n).tolist()))
+    segments.append(([9] * 1400, [1] * 300 + [0] * 300
+                     + rng.integers(0, 2, 800).tolist()))
+    idx = rng.integers(10, ARENA_SIZE, long_lane)
+    reuse = rng.random(long_lane) < 0.7
+    idx[reuse] = idx[rng.integers(0, 64, int(reuse.sum()))]
+    segments.append((idx.tolist(), rng.integers(0, 2, long_lane).tolist()))
+    return segments
+
+
+def stage_template(packed: np.ndarray) -> np.ndarray:
+    """A copy of a packed template (c0 << 16 | c1 << 8 | prob) whose
+    PROB0_BRANCH stores prob byte 0, as a VPX-trained model does for a
+    branch it never saw."""
+    packed = np.array(packed, dtype=np.uint32)
+    packed[PROB0_BRANCH] &= ~np.uint32(0xFF)
+    return packed
+
+
 def unframed_lanes(segments):
     """(idx int32 [S, L], bit uint8 [S, L], nsyms int32 [S]) numpy arrays of
     unframed lanes, PAD after each lane's symbols."""
@@ -191,6 +241,28 @@ def prob0_lanes():
             [([3], [0]), ([7, 7], [0, 1])])
 
 
+def coder_kernels():
+    """The encode coders' kernel wrappers, each with its launch counter:
+    the probability stage's two, then the VPX and rANS walks."""
+    from lepton_tpu_torch.kernels import ans_coder, vpx_coder
+    from lepton_tpu_torch.kernels import branch_probs as bp
+    return (bp.run_heads, bp.walk_runs, vpx_coder.vpx_walk,
+            ans_coder.ans_walk)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches of the coders' kernels made inside do not count toward the
+    main path: they compare a kernel with its plain version."""
+    fns = coder_kernels()
+    saved = [f.launches for f in fns]
+    try:
+        yield
+    finally:
+        for f, n in zip(fns, saved):
+            f.launches = n
+
+
 def check_ans_zero_freq(dev) -> None:
     """The ANS coder kernel codes a 1 bit at probability 0 as the plain
     version does, and refuses a 0 bit there (freq 0) with the plain
@@ -202,19 +274,17 @@ def check_ans_zero_freq(dev) -> None:
     tpl = arena_from_template(packed).to(dev)
     compare_ans_coder(*(torch.as_tensor(a, device=dev)
                         for a in unframed_lanes(ok)), tpl)
-    counted = ans_coder.encode_streams_ans.launches
     for fn in (ans_coder.encode_streams_ans,
                ans_coder.encode_streams_ans_plain):
         try:
-            fn(*(torch.as_tensor(a, device=dev) for a in unframed_lanes(bad)),
-               tpl)
+            with uncounted():
+                fn(*(torch.as_tensor(a, device=dev)
+                     for a in unframed_lanes(bad)), tpl)
         except ValueError as e:
             if "lanes [1]" not in str(e):
                 fail(f"{fn.__name__} refused the wrong lanes: {e}")
         else:
             fail(f"{fn.__name__} coded a 0 bit at probability 0")
-    # launches made to compare do not count toward the main path
-    ans_coder.encode_streams_ans.launches = counted
 
 
 def timed_cuda(fn, *args):
@@ -229,53 +299,140 @@ def timed_cuda(fn, *args):
     return r, start.elapsed_time(end)
 
 
-def compare_coder(idx, bit, template=None):
-    """Kernel vs plain version on the same CUDA tensors.  Returns
-    (max_abs_err over stream bytes, kernel ms, plain ms)."""
+def _byte_err(a: list, b: list) -> int:
+    """Largest absolute difference between two lists of byte strings."""
+    return max((int(np.abs(np.frombuffer(x, np.uint8).astype(np.int16)
+                           - np.frombuffer(y, np.uint8)).max())
+                for x, y in zip(a, b) if x and len(x) == len(y)), default=0)
+
+
+def compare_probs(idx, bit, template, rule, nsyms=None):
+    """The probability stage's two kernels, each against its plain version
+    on the same CUDA tensors: run_heads on the grouped keys (its list
+    sorted first: the kernel's has no fixed order), then walk_runs on
+    those heads.  Returns (probs, max_abs_err, {kernel: (kernel ms, plain
+    ms)})."""
     import torch
+    from lepton_tpu_torch.kernels import branch_probs as bp
+    bp.check(idx, bit, template, rule, nsyms)
+    keys, shift = bp.group(idx, bit, nsyms)
+    with uncounted():
+        heads, heads_k = timed_cuda(bp.run_heads, keys, shift)
+        want_heads, heads_p = timed_cuda(bp.run_heads_plain, keys, shift)
+        (probs, zero, longest), runs_k = timed_cuda(
+            bp.walk_runs, keys, shift, heads, idx.shape, template, rule)
+        (want, wzero, wlongest), runs_p = timed_cuda(
+            bp.walk_runs_plain, keys, shift, want_heads, idx.shape, template,
+            rule)
+    if not torch.equal(torch.sort(heads).values, want_heads):
+        fail(f"run_heads kernel differs from its plain version ({rule})")
+    err = int((probs.int() - want.int()).abs().max()) if probs.numel() else 0
+    if err or not torch.equal(zero, wzero) or longest != wlongest:
+        fail(f"walk_runs kernel ({rule}) differs from its plain version "
+             f"(max err {err}, longest run {longest} vs {wlongest})")
+    return probs, err, {"heads": (heads_k, heads_p), "runs": (runs_k, runs_p)}
+
+
+def compare_coder(idx, bit, template=None):
+    """The VPX coder's kernels against their plain versions on the same
+    CUDA tensors: the probability stage's two kernels, the walk on its
+    probabilities, and the whole coder (encode_streams against the
+    arena-walk encode_streams_plain).  Returns (max_abs_err over
+    probabilities and stream bytes, {kernel or "coder": (kernel ms, plain
+    ms)})."""
     from lepton_tpu_torch.kernels import vpx_coder
-    counted = vpx_coder.encode_streams.launches
-    (out_k, nb_k), ms_k = timed_cuda(vpx_coder.encode_streams, idx, bit,
-                                     template)
-    (out_p, nb_p), ms_p = timed_cuda(vpx_coder.encode_streams_plain, idx,
-                                     bit, template)
-    # launches made to compare do not count toward the main path
-    vpx_coder.encode_streams.launches = counted
-    if not torch.equal(nb_k.cpu(), nb_p.cpu()):
-        fail("coder kernel and plain version differ in stream lengths")
-    sk = vpx_coder.finalize(out_k, nb_k)
-    sp = vpx_coder.finalize(out_p, nb_p)
-    err = max((int(np.abs(np.frombuffer(a, np.uint8).astype(np.int16)
-                          - np.frombuffer(b, np.uint8)).max())
-               for a, b in zip(sk, sp) if a), default=0)
-    if sk != sp:
-        fail(f"coder kernel differs from plain version (max err {err})")
-    return err, ms_k, ms_p
+    probs, perr, ms = compare_probs(idx, bit, template, "vpx")
+    with uncounted():
+        (out_k, nb_k), walk_k = timed_cuda(vpx_coder.vpx_walk, idx, bit,
+                                           probs)
+        (out_p, nb_p), walk_p = timed_cuda(vpx_coder.vpx_walk_plain, idx,
+                                           bit, probs)
+        (out_w, nb_w), ms_k = timed_cuda(vpx_coder.encode_streams, idx, bit,
+                                         template)
+        (out_q, nb_q), ms_p = timed_cuda(vpx_coder.encode_streams_plain, idx,
+                                         bit, template)
+    errs = [perr]
+    for what, k, p in (("walk", (out_k, nb_k), (out_p, nb_p)),
+                       ("coder", (out_w, nb_w), (out_q, nb_q))):
+        sk, sp = vpx_coder.finalize(*k), vpx_coder.finalize(*p)
+        errs.append(_byte_err(sk, sp))
+        if sk != sp:
+            fail(f"VPX {what} kernel differs from its plain version (max "
+                 f"err {errs[-1]})")
+    return max(errs), dict(ms, walk=(walk_k, walk_p), coder=(ms_k, ms_p))
 
 
 def compare_ans_coder(idx, bit, nsyms, template=None):
-    """ANS coder kernel vs plain version on the same CUDA tensors.  Returns
-    (max_abs_err over the lane bytes, kernel ms, plain ms, most words of a
-    lane)."""
-    import torch
+    """The ANS coder's kernels against their plain versions on the same
+    CUDA tensors, as compare_coder does for the VPX coder.  Returns
+    (max_abs_err, {stage: (kernel ms, plain ms)}, most words of a lane)."""
     from lepton_tpu_torch.kernels import ans_coder
-    counted = ans_coder.encode_streams_ans.launches
-    (out_k, nw_k), ms_k = timed_cuda(ans_coder.encode_streams_ans, idx, bit,
-                                     nsyms, template)
-    (out_p, nw_p), ms_p = timed_cuda(ans_coder.encode_streams_ans_plain, idx,
-                                     bit, nsyms, template)
-    # launches made to compare do not count toward the main path
-    ans_coder.encode_streams_ans.launches = counted
-    if not torch.equal(nw_k.cpu(), nw_p.cpu()):
-        fail("ANS coder kernel and plain version differ in word counts")
-    sk = ans_coder.finalize_ans(out_k, nw_k)
-    sp = ans_coder.finalize_ans(out_p, nw_p)
-    err = max(int(np.abs(np.frombuffer(a, np.uint8).astype(np.int16)
-                         - np.frombuffer(b, np.uint8)).max())
-              for a, b in zip(sk, sp))
-    if sk != sp:
-        fail(f"ANS coder kernel differs from plain version (max err {err})")
-    return err, ms_k, ms_p, int(nw_k.max())
+    probs, perr, ms = compare_probs(idx, bit, template, "adv", nsyms)
+    with uncounted():
+        (out_k, nw_k), walk_k = timed_cuda(ans_coder.ans_walk, probs, bit,
+                                           nsyms)
+        (out_p, nw_p), walk_p = timed_cuda(ans_coder.ans_walk_plain, probs,
+                                           bit, nsyms)
+        (out_w, nw_w), ms_k = timed_cuda(ans_coder.encode_streams_ans, idx,
+                                         bit, nsyms, template)
+        (out_q, nw_q), ms_p = timed_cuda(ans_coder.encode_streams_ans_plain,
+                                         idx, bit, nsyms, template)
+    errs = [perr]
+    for what, k, p in (("walk", (out_k, nw_k), (out_p, nw_p)),
+                       ("coder", (out_w, nw_w), (out_q, nw_q))):
+        sk, sp = ans_coder.finalize_ans(*k), ans_coder.finalize_ans(*p)
+        errs.append(_byte_err(sk, sp))
+        if sk != sp:
+            fail(f"ANS {what} kernel differs from its plain version (max "
+                 f"err {errs[-1]})")
+    return (max(errs), dict(ms, walk=(walk_k, walk_p), coder=(ms_k, ms_p)),
+            int(nw_k.max()))
+
+
+def stage_lanes(framed: bool):
+    """(idx, bit, nsyms) numpy arrays of stage_segments: framed VPX lanes
+    (marker bit, 32 stop bits) or unframed rANS lanes."""
+    from lepton_tpu_torch.kernels import vpx_coder
+    segments = stage_segments()
+    if not framed:
+        return unframed_lanes(segments)
+    idx, bit = vpx_coder.build_symbol_streams(segments)
+    return idx, bit, np.full(len(idx), idx.shape[1], np.int32)
+
+
+def stage_inputs(dev, framed: bool):
+    """stage_lanes as tensors on `dev`, and the stage template (a random
+    trained model with a prob-0 branch) in the coder layout."""
+    import torch
+    from lepton_tpu_torch import api
+    from lepton_tpu_torch.model.tables import ARENA_SIZE, arena_from_template
+    raw = np.random.default_rng(SEED + 2).integers(0, 256, (ARENA_SIZE, 3),
+                                                   dtype=np.uint8)
+    raw[:, 2] = 1 + raw[:, 2] % 254
+    tpl = arena_from_template(stage_template(api.pack_model(raw)))
+    return (tuple(torch.as_tensor(a, device=dev) for a in stage_lanes(framed)),
+            tpl.to(dev))
+
+
+def bound_ms(moved: int, ops: int) -> tuple:
+    """(ms to move `moved` bytes, ms to do `ops` scalar operations) at the
+    H100's peak rates."""
+    return (moved / H100_BYTES_PER_S * 1e3,
+            ops / H100_SCALAR_OPS_PER_S * 1e3)
+
+
+def fmt_ms(ms: dict) -> str:
+    return "; ".join(f"{k} kernel {a:.2f} ms, plain {b:.0f} ms"
+                     for k, (a, b) in ms.items())
+
+
+def stage_split(stats: dict) -> str:
+    """A coder's stage times from its stats dict."""
+    return (f"(sort {stats['sort_ms']:.2f}, probability stage "
+            f"{stats['probs_ms']:.2f} = run_heads {stats['heads_ms']:.2f} + "
+            f"walk_runs {stats['runs_ms']:.2f}, walk {stats['walk_ms']:.2f} "
+            f"ms; {stats['live']} live symbols in {stats['runs']} runs, "
+            f"longest run {stats['longest_run']})")
 
 
 def encode_in_segments(jpeg: bytes, nseg: int, template=None,
@@ -404,18 +561,18 @@ def main() -> None:
     except ImportError as e:
         fail(f"lepton_tpu_torch is not beside chip_smoke.py: {e}")
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
+    card = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    log(f"card: {name} ({smi}); torch {torch.__version__}, "
+    log(f"card: {card} ({smi}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
     # ---- phase 1: build the kernels, one nvcc each, together
-    took = cuda_build.build(["vpx_coder", "vpx_decoder", "ans_coder",
-                             "decode_roofline"])
-    for phase, kname in (("1", "vpx_coder"), ("5", "vpx_decoder"),
-                         ("8", "ans_coder"), ("12", "decode_roofline")):
+    builds = (("1", "branch_probs"), ("1", "vpx_coder"), ("5", "vpx_decoder"),
+              ("8", "ans_coder"), ("12", "decode_roofline"))
+    took = cuda_build.build([kname for _, kname in builds])
+    for phase, kname in builds:
         log(f"[{phase}] built "
             f"{os.path.relpath(cuda_build.so_path(kname), HERE)} for sm_90a "
             f"in {took[kname]:.1f} s")
@@ -423,7 +580,7 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"[{phase}]   ptxas: {line.strip()}")
 
-    # ---- phase 2: kernel against plain on adversarial streams
+    # ---- phase 2: kernels against plain on adversarial streams
     idxs, bits = vpx_coder.build_symbol_streams(adversarial_segments())
     idx_a = torch.as_tensor(idxs, device=dev)
     bit_a = torch.as_tensor(bits, device=dev)
@@ -433,10 +590,16 @@ def main() -> None:
     tpl = arena_from_template(api.pack_model(raw)).to(dev)
     errs = []
     for label, template in (("identity", None), ("template", tpl)):
-        err, ms_k, ms_p = compare_coder(idx_a, bit_a, template)
+        err, ms = compare_coder(idx_a, bit_a, template)
         errs.append(err)
         log(f"[2] adversarial streams {tuple(idx_a.shape)}, {label} start: "
-            f"kernel == plain (kernel {ms_k:.2f} ms, plain {ms_p:.0f} ms)")
+            f"kernels == plain ({fmt_ms(ms)})")
+    (idx_s, bit_s, _), stpl = stage_inputs(dev, framed=True)
+    for label, template in (("identity", None), ("prob-0 template", stpl)):
+        err, ms = compare_coder(idx_s, bit_s, template)
+        errs.append(err)
+        log(f"[2] stage lanes {tuple(idx_s.shape)}, {label} start: kernels "
+            f"== plain ({fmt_ms(ms)})")
 
     # ---- phase 3: small images, cuda against cpu
     small = make_photo(SEED + 10, 160, 120)
@@ -470,26 +633,26 @@ def main() -> None:
     bit_p = torch.cat([bit_f[:, :PREFIX], torch.zeros_like(stop,
                       dtype=torch.uint8)], 1).contiguous()
     del idx_f, bit_f
-    err, prefix_ms, plain_ms = compare_coder(idx_p, bit_p)
+    err, prefix = compare_coder(idx_p, bit_p)
     errs.append(err)
     log(f"[2] framed {PREFIX}-symbol prefix of all {idx_p.shape[0]} lanes: "
-        f"kernel == plain (kernel {prefix_ms:.2f} ms, plain "
-        f"{plain_ms:.0f} ms)")
+        f"kernels == plain ({fmt_ms(prefix)})")
     del idx_p, bit_p
     torch.cuda.empty_cache()
 
     # ---- phase 4: the main path
-    vpx_coder.encode_streams.launches = 0
+    for fn in coder_kernels():
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
     prof = {}
     leps = api.batch_compress_device(blobs, num_segments=16, stats=prof)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t
-    launches = vpx_coder.encode_streams.launches
+    launches = {fn.__name__: fn.launches for fn in coder_kernels()[:3]}
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches < 1:
-        fail("the main path launched no coder kernel")
+    if min(launches.values()) < 1:
+        fail(f"the main path left a coder kernel unlaunched: {launches}")
     if prof["lanes"] != 64:
         fail(f"expected 64 coder lanes, got {prof['lanes']}")
     for b, lep in zip(blobs, leps):
@@ -505,12 +668,12 @@ def main() -> None:
     bytes_in, bytes_out = sum(map(len, blobs)), sum(map(len, leps))
     mp = 4 * 4032 * 3024 / 1e6
     log(f"[4] batch_compress_device: 4 images, {prof['lanes']} lanes, "
-        f"{launches} coder launch(es); image 0 alone gives equal bytes")
+        f"launches {launches}; image 0 alone gives equal bytes")
     log(f"[4] stage s: parse+huffman {prof['parse_s']:.3f}, symbolize "
         f"{prof['symbolize_s']:.3f}, assembly {prof['assemble_s']:.3f}, "
-        f"coder kernel {prof['coder_ms'] / 1e3:.3f} (CUDA events), "
-        f"finalize+mux {prof['finalize_s'] + prof['mux_s']:.3f}; "
-        f"wall {wall:.3f}")
+        f"coder {prof['coder_ms'] / 1e3:.3f} (CUDA events: "
+        f"{stage_split(prof)[1:-1]}), finalize+mux "
+        f"{prof['finalize_s'] + prof['mux_s']:.3f}; wall {wall:.3f}")
     log(f"[4] JPEG bytes in {bytes_in}, .lep bytes out {bytes_out}, ratio "
         f"{bytes_out / bytes_in:.4f}; {bytes_in / 1e6 / wall:.2f} MB/s, "
         f"{mp / wall:.2f} MP/s")
@@ -520,36 +683,53 @@ def main() -> None:
         f"{single_s:.3f} s")
 
     # the coder again on the whole batch, and on its longest lane alone:
-    # each lane is one serial chain, so the longest bounds the launch
+    # each lane's walk is one serial chain, so the longest bounds it
     idx_f, bit_f, _ = batch_encode.assemble_lanes(descs, dev)
     lane_symbols = (idx_f != vpx_coder.PAD).sum(1).cpu()
     k = int(lane_symbols.argmax())
-    _, again_ms = timed_cuda(vpx_coder.encode_streams, idx_f, bit_f)
+    again, alone = {}, {}
+    _, again_ms = timed_cuda(vpx_coder.encode_streams, idx_f, bit_f, None,
+                             again)
     _, alone_ms = timed_cuda(vpx_coder.encode_streams,
                              idx_f[k:k + 1].contiguous(),
-                             bit_f[k:k + 1].contiguous())
-    log(f"[4] coder kernel alone: all {prof['lanes']} lanes {again_ms:.2f} "
-        f"ms; longest lane only {alone_ms:.2f} ms, "
-        f"{alone_ms * 1e6 / prof['max_lane_symbols']:.1f} ns a symbol")
+                             bit_f[k:k + 1].contiguous(), None, alone)
+    log(f"[4] coder again: all {prof['lanes']} lanes {again_ms:.2f} ms "
+        f"{stage_split(again)}; longest lane only {alone_ms:.2f} ms "
+        f"{stage_split(alone)}, "
+        f"{alone['walk_ms'] * 1e6 / prof['max_lane_symbols']:.1f} ns a "
+        f"symbol in its walk")
 
-    # least time for the coder's work on this run's data: each live symbol
-    # (int32 index + uint8 bit) read once, each stream byte written once
-    moved = prof["symbols"] * 5 + bytes_out + 4 * prof["lanes"]
-    t_bytes = moved / H100_BYTES_PER_S * 1e3
-    t_ops = prof["symbols"] * CODER_OPS_PER_SYMBOL \
-        / H100_SCALAR_OPS_PER_S * 1e3
+    # least time for the whole coder's work on this run's data: each
+    # symbol's int32 index and uint8 bit read once, each stream byte and
+    # lane count written once; and for its walk alone, which also reads
+    # each symbol's uint8 probability
+    t_bytes, t_ops = bound_ms(prof["symbols"] * 5 + bytes_out
+                              + 4 * prof["lanes"], prof["symbols"]
+                              * (WALK_OPS_PER_SYMBOL + PROBS_OPS_PER_SYMBOL))
+    w_bytes, w_ops = bound_ms(prof["symbols"] * 6 + bytes_out
+                              + 4 * prof["lanes"],
+                              prof["symbols"] * WALK_OPS_PER_SYMBOL)
     kernels = [{
         "name": "vpx_coder", "route": "cuda",
         "source": "lepton_tpu_torch/csrc/vpx_coder.cu",
         "replaces": "lepton_tpu/kernels/pallas_coder.py:44",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": prof["coder_ms"], "plain_ms": plain_ms,
+        "stage": "the whole VPX coder (encode_streams): the sort, run_heads "
+                 "and walk_runs (csrc/branch_probs.cu), then this file's "
+                 "walk; ms, plain_ms and bound_ms are the whole coder's, "
+                 "walk_* the walk kernel's alone",
+        "launches": launches["vpx_walk"], "max_abs_err": max(errs),
+        "ms": prof["coder_ms"], "plain_ms": prefix["coder"][1],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "equal_to_plain": True,
         "plain_inputs": f"{PREFIX}-symbol framed prefix of 64 lanes",
-        "kernel_ms_on_plain_inputs": prefix_ms,
+        "kernel_ms_on_plain_inputs": prefix["coder"][0],
+        "sort_ms": prof["sort_ms"], "probs_ms": prof["probs_ms"],
+        "walk_ms": prof["walk_ms"], "walk_plain_ms": prefix["walk"][1],
+        "walk_bound_ms": max(w_bytes, w_ops),
+        "walk_bound_by": "bytes" if w_bytes >= w_ops else "operations",
+        "walk_kernel_ms_on_plain_inputs": prefix["walk"][0],
     }]
     del idx_f, bit_f
     torch.cuda.empty_cache()
@@ -687,12 +867,19 @@ def main() -> None:
                           unframed_lanes(ans_adversarial_segments()))
     aerrs = []
     for label, template in (("identity", None), ("template", tpl)):
-        err, ms_k, ms_p, nw = compare_ans_coder(idx_a, bit_a, ns_a, template)
+        err, ms, nw = compare_ans_coder(idx_a, bit_a, ns_a, template)
         aerrs.append(err)
         log(f"[8] adversarial lanes {tuple(idx_a.shape)} (symbols "
-            f"{ns_a.tolist()}, up to {nw} words), {label} start: kernel == "
-            f"plain (kernel {ms_k:.2f} ms, plain {ms_p:.0f} ms)")
+            f"{ns_a.tolist()}, up to {nw} words), {label} start: kernels "
+            f"== plain ({fmt_ms(ms)})")
     del idx_a, bit_a, ns_a
+    (idx_s, bit_s, ns_s), stpl = stage_inputs(dev, framed=False)
+    for label, template in (("identity", None), ("prob-0 template", stpl)):
+        err, ms, nw = compare_ans_coder(idx_s, bit_s, ns_s, template)
+        aerrs.append(err)
+        log(f"[8] stage lanes {tuple(idx_s.shape)} (symbols "
+            f"{ns_s.tolist()}), {label} start: kernels == plain "
+            f"({fmt_ms(ms)})")
     check_ans_zero_freq(dev)
     log("[8] a template's prob-0 branch: a 1 bit codes as in plain, a 0 "
         "bit (freq 0) raises on the card as in plain")
@@ -700,18 +887,18 @@ def main() -> None:
     lane_syms3 = (idx3 != vpx_coder.PAD).sum(1).cpu().numpy()
     ns_p = torch.as_tensor(np.minimum(lane_syms3, ANS_PREFIX),
                            dtype=torch.int32, device=dev)
-    err, aprefix_ms, aplain_ms, _ = compare_ans_coder(
+    err, aprefix, _ = compare_ans_coder(
         idx3[:, :ANS_PREFIX].contiguous(), bit3[:, :ANS_PREFIX].contiguous(),
         ns_p)
     aerrs.append(err)
     log(f"[8] unframed {ANS_PREFIX}-symbol prefix of all {idx3.shape[0]} v3 "
-        f"lanes: kernel == plain (kernel {aprefix_ms:.2f} ms, plain "
-        f"{aplain_ms:.0f} ms)")
+        f"lanes: kernels == plain ({fmt_ms(aprefix)})")
     del idx3, bit3
     torch.cuda.empty_cache()
 
     # ---- phase 9: the v3 main path, encode then decode
-    ans_coder.encode_streams_ans.launches = 0
+    for fn in coder_kernels():
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
     prof3 = {}
@@ -719,10 +906,11 @@ def main() -> None:
                                       version=3)
     torch.cuda.synchronize(dev)
     wall3 = time.perf_counter() - t
-    alaunches = ans_coder.encode_streams_ans.launches
+    alaunches = {fn.__name__: fn.launches
+                 for fn in coder_kernels()[:2] + coder_kernels()[3:]}
     peak3 = torch.cuda.max_memory_allocated(dev)
-    if alaunches != 1:
-        fail(f"the v3 encode launched the ANS coder {alaunches} times, not 1")
+    if set(alaunches.values()) != {1}:
+        fail(f"the v3 encode made coder launches {alaunches}, not one each")
     if prof3["lanes"] != 64:
         fail(f"expected 64 v3 lanes, got {prof3['lanes']}")
     for b, lep in zip(blobs, leps3):
@@ -742,12 +930,13 @@ def main() -> None:
             fail(f"v{version} compress_device: cuda and cpu bytes differ")
     bytes_out3 = sum(map(len, leps3))
     log(f"[9] batch_compress_device(version=3): 4 images, {prof3['lanes']} "
-        f"lanes, {alaunches} ANS coder launch; image 0 alone gives equal "
+        f"lanes, launches {alaunches}; image 0 alone gives equal "
         f"bytes; 160x120 in 4 segments gives equal v2 and v3 bytes on cuda "
         f"and cpu")
     log(f"[9] v3 stage s: parse+huffman {prof3['parse_s']:.3f}, symbolize "
         f"{prof3['symbolize_s']:.3f}, assembly {prof3['assemble_s']:.3f}, "
-        f"ANS coder kernel {prof3['ans_coder_ms'] / 1e3:.3f} (CUDA events), "
+        f"ANS coder {prof3['ans_coder_ms'] / 1e3:.3f} (CUDA events: "
+        f"{stage_split(prof3)[1:-1]}), "
         f"finalize+mux {prof3['finalize_s'] + prof3['mux_s']:.3f}; wall "
         f"{wall3:.3f}; {bytes_in / 1e6 / wall3:.2f} MB/s; peak "
         f"max_memory_allocated {peak3 / 2**30:.2f} GiB; compress_device on "
@@ -762,14 +951,18 @@ def main() -> None:
     idx3, bit3, _ = batch_encode.assemble_lanes(descs, dev, framed=False)
     ns3 = torch.as_tensor(lane_syms3, dtype=torch.int32, device=dev)
     k3 = int(lane_syms3.argmax())
-    _, aagain_ms = timed_cuda(ans_coder.encode_streams_ans, idx3, bit3, ns3)
+    again3, alone3 = {}, {}
+    _, aagain_ms = timed_cuda(ans_coder.encode_streams_ans, idx3, bit3, ns3,
+                              None, again3)
     _, aalone_ms = timed_cuda(ans_coder.encode_streams_ans,
                               idx3[k3:k3 + 1].contiguous(),
-                              bit3[k3:k3 + 1].contiguous(), ns3[k3:k3 + 1])
-    log(f"[9] ANS coder kernel alone: all {len(lane_syms3)} lanes "
-        f"{aagain_ms:.2f} ms; longest lane ({k3}, {lane_syms3[k3]} symbols) "
-        f"only {aalone_ms:.2f} ms, "
-        f"{aalone_ms * 1e6 / lane_syms3[k3]:.1f} ns a symbol")
+                              bit3[k3:k3 + 1].contiguous(), ns3[k3:k3 + 1],
+                              None, alone3)
+    log(f"[9] ANS coder again: all {len(lane_syms3)} lanes {aagain_ms:.2f} "
+        f"ms {stage_split(again3)}; longest lane ({k3}, {lane_syms3[k3]} "
+        f"symbols) only {aalone_ms:.2f} ms {stage_split(alone3)}, "
+        f"{alone3['walk_ms'] * 1e6 / lane_syms3[k3]:.1f} ns a symbol in its "
+        f"walk")
     del idx3, bit3
     torch.cuda.empty_cache()
 
@@ -897,24 +1090,72 @@ def main() -> None:
     plaunches = decode_roofline.probe.launches
     mixed_ms = probe_ns["mixed", 1, False] * PROBE_STEPS / 1e6
 
-    # least times of the new kernels' work on this run's data
-    a_moved = int(lane_syms3.sum()) * 5 + bytes_out3 + 4 * len(lane_syms3)
-    a_bytes = a_moved / H100_BYTES_PER_S * 1e3
-    a_ops = int(lane_syms3.sum()) * ANS_CODER_OPS_PER_SYMBOL \
-        / H100_SCALAR_OPS_PER_S * 1e3
+    # least time of the whole ANS coder's work on this run's data: each
+    # symbol's index and bit read once, each lane's words written once; and
+    # of its walk alone, which reads each symbol's probability and bit
+    a_syms = int(lane_syms3.sum())
+    a_bytes, a_ops = bound_ms(a_syms * 5 + bytes_out3 + 4 * len(lane_syms3),
+                              a_syms * (ANS_WALK_OPS_PER_SYMBOL
+                                        + PROBS_OPS_PER_SYMBOL))
+    aw_bytes, aw_ops = bound_ms(a_syms * 2 + bytes_out3
+                                + 4 * len(lane_syms3),
+                                a_syms * ANS_WALK_OPS_PER_SYMBOL)
     kernels.append({
         "name": "ans_coder", "route": "cuda",
         "source": "lepton_tpu_torch/csrc/ans_coder.cu",
         "replaces": "lepton_tpu/kernels/batch_encode.py:378",
-        "launches": alaunches, "max_abs_err": max(aerrs),
-        "ms": prof3["ans_coder_ms"], "plain_ms": aplain_ms,
+        "stage": "the whole v3 phase B (encode_streams_ans): the sort, "
+                 "run_heads and walk_runs under the adv rule, then this "
+                 "file's reverse walk; ms, plain_ms and bound_ms are the "
+                 "whole coder's, walk_* the walk kernel's alone",
+        "launches": alaunches["ans_walk"], "max_abs_err": max(aerrs),
+        "ms": prof3["ans_coder_ms"], "plain_ms": aprefix["coder"][1],
         "bound_ms": max(a_bytes, a_ops),
         "bound_by": "bytes" if a_bytes >= a_ops else "operations",
         "library_ms": None,
         "equal_to_plain": True,
         "plain_inputs": f"{ANS_PREFIX}-symbol unframed prefix of 64 lanes",
-        "kernel_ms_on_plain_inputs": aprefix_ms,
+        "kernel_ms_on_plain_inputs": aprefix["coder"][0],
+        "sort_ms": prof3["sort_ms"], "probs_ms": prof3["probs_ms"],
+        "walk_ms": prof3["walk_ms"], "walk_plain_ms": aprefix["walk"][1],
+        "walk_bound_ms": max(aw_bytes, aw_ops),
+        "walk_bound_by": "bytes" if aw_bytes >= aw_ops else "operations",
+        "walk_kernel_ms_on_plain_inputs": aprefix["walk"][0],
     })
+    # the probability stage's two kernels on the v1 path's data (the v3
+    # path's in the *_v3 keys): run_heads reads each live symbol's sorted
+    # key once and writes each run's start; walk_runs reads the keys and
+    # the starts and writes one probability byte a live symbol
+    h_bytes, h_ops = bound_ms(prof["live"] * 8 + prof["runs"] * 8,
+                              prof["live"] * HEADS_OPS_PER_KEY)
+    b_bytes, b_ops = bound_ms(prof["live"] * 9 + prof["runs"] * 8,
+                              prof["live"] * PROBS_OPS_PER_SYMBOL)
+    for kern, key, at, ms_key, (x_bytes, x_ops), what in (
+            ("run_heads", "heads", 560, "heads_ms", (h_bytes, h_ops),
+             "the first key of each (lane, branch) run"),
+            ("walk_runs", "runs", 573, "runs_ms", (b_bytes, b_ops),
+             "each run's probabilities, a thread a run")):
+        kernels.append({
+            "name": kern, "route": "cuda",
+            "source": "lepton_tpu_torch/csrc/branch_probs.cu",
+            "replaces": f"lepton_tpu/kernels/vpx_scan.py:{at}",
+            "stage": f"probability stage of both coders (model_probs_sorted "
+                     f"at vpx_scan.py:525): {what}",
+            "launches": launches[kern], "launches_v3": alaunches[kern],
+            "max_abs_err": max(errs + aerrs),
+            "ms": prof[ms_key], "ms_v3": prof3[ms_key],
+            "plain_ms": prefix[key][1],
+            "bound_ms": max(x_bytes, x_ops),
+            "bound_by": "bytes" if x_bytes >= x_ops else "operations",
+            "library_ms": None,
+            "equal_to_plain": True,
+            "plain_inputs": f"{PREFIX}-symbol framed prefix of 64 lanes, vpx "
+                            "rule",
+            "kernel_ms_on_plain_inputs": prefix[key][0],
+            "live": prof["live"], "runs": prof["runs"],
+            "longest_run": prof["longest_run"],
+            "longest_run_v3": prof3["longest_run"],
+        })
     r_moved = (int(plan3.dlen.sum()) * 4 + plan3.n_blocks * 64 * 2
                + len(lane_syms3) * ARENA_SIZE * 4)
     r_bytes = r_moved / H100_BYTES_PER_S * 1e3
@@ -959,7 +1200,7 @@ def main() -> None:
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))
 
 

@@ -1,13 +1,21 @@
-"""Phase B of container v3: per-segment rANS coding, one serial coder a lane.
+"""Phase B of container v3: per-segment rANS coding, in two stages.
 
 Port of the v3 phase B of lepton_tpu/kernels/batch_encode.py
-(_ansenc_packed_jit :378-428, that is vpx_scan.model_probs_sorted with the
-adv update rule, :525-609, plus vpx_scan.ans_pass, :744-823) and of its
-host side (_finalize_ans_lane :431-437, vpx_scan.finalize_ans_streams
-:826-852).  The kernel is csrc/ans_coder.cu, built with nvcc at first use
-into build/ and bound with ctypes (kernels/cuda_build.py).
-encode_streams_ans launches it for CUDA tensors and runs the plain PyTorch
-version, encode_streams_ans_plain, only for CPU tensors.
+(_ansenc_packed_jit :378-428) and of its host side (_finalize_ans_lane
+:431-437, vpx_scan.finalize_ans_streams :826-852), in its two stages:
+
+  1. the probability stage, kernels/branch_probs.py with the adv rule
+     (vpx_scan.model_probs_sorted(update="adv"), :525-609), which also
+     flags a lane that codes a 0 bit at probability 0 (freq 0);
+  2. the reverse walk, ans_walk (vpx_scan.ans_pass, :744-823), one serial
+     coder a lane in registers.  Its kernel is csrc/ans_coder.cu, built
+     with nvcc at first use into build/ and bound with ctypes
+     (kernels/cuda_build.py).
+
+encode_streams_ans chains the two; each stage launches its kernel for CUDA
+tensors and runs its plain PyTorch version only for CPU tensors.
+encode_streams_ans_plain is the whole function's plain version, over a
+model arena per lane, independent of the grouping.
 
 A v3 lane is unframed: no marker bit and no stop bits, just the segment's
 live symbols (idx >= 0: an adaptive branch of the arena).  Each symbol is
@@ -28,8 +36,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..model.tables import ARENA_SIZE, IDENTITY_BRANCH
+from ..model.tables import ARENA_SIZE
+from . import branch_probs as bp
 from . import cuda_build
+from .branch_probs import branch_update_adv
 from .vpx_coder import FIXED_PROB
 
 RANS64_L = 1 << 31
@@ -40,22 +50,11 @@ NOP_PAIRS = 4
 # lepton_tpu/coder/ans.py ANS_PARITY_TAIL, :25-30).
 ANS_PARITY_TAIL = b"\x00\x80\x00\x80"
 _MASK32 = 0xFFFFFFFF
+_MASK64 = (1 << 64) - 1
 
 _lib = None
 _lock = threading.Lock()
-
-
-def branch_update_adv(fc, tc, obs):
-    """The adv rule (model.branch.adv_update_branch) on int64 tensors of
-    pre-observation counts; returns the packed fc | tc<<8 | prob<<16."""
-    val = torch.where(obs, tc, fc)
-    ovf = val == 0xFF
-    nfc = torch.where(ovf, torch.where(obs, (fc + 1) >> 1, 129),
-                      torch.where(obs, fc, fc + 1))
-    ntc = torch.where(ovf, torch.where(obs, 129, (tc + 1) >> 1),
-                      torch.where(obs, tc + 1, tc))
-    nprob = (((nfc << 8) // (nfc + ntc)) & 0xFF) | 1
-    return nfc | (ntc << 8) | (nprob << 16)
+_tables = {}
 
 
 def next_state_adv(device) -> torch.Tensor:
@@ -66,43 +65,54 @@ def next_state_adv(device) -> torch.Tensor:
                              (state & 1) != 0)
 
 
+def enc_table() -> np.ndarray:
+    """The walk kernel's reciprocal table, uint64 [512, 3]: for each pair
+    value v = bit << 8 | prob, (m, x_max, l | start_inv << 32) with
+    freq = 256 - prob for a 1 bit and prob for a 0 bit, start = prob for a
+    1 bit and 0 for a 0 bit, x_max = (RANS64_L >> 8 << 32) * freq,
+    start_inv = start | (256 - freq) << 16, and (m, l) such that
+    x // freq == (mulhi(m, x) + x) >> l for every 64-bit x: the low 64
+    bits of 2^(64 + l) // freq + 1 with l = ceil(log2(freq)).  Copy of
+    _native/leptonc.c RANS_DIV / ANS_ENC_LUT (init_rans_div).  The
+    (0 bit, prob 0) entry, freq 0, is made for freq 1 and never used: the
+    probability stage refuses such a lane first."""
+    table = np.zeros((512, 3), np.uint64)
+    for v in range(512):
+        b, p = v >> 8, v & 0xFF
+        freq = max(256 - p if b else p, 1)
+        start = p if b else 0
+        lg = (freq - 1).bit_length()
+        m = ((1 << (64 + lg)) // freq + 1) & _MASK64
+        x_max = (RANS64_L >> 8 << 32) * freq
+        table[v] = (m, x_max, lg | (start | (256 - freq) << 16) << 32)
+    return table
+
+
+def _table(dev: torch.device) -> torch.Tensor:
+    if dev not in _tables:
+        _tables[dev] = torch.from_numpy(enc_table().view(np.int64)).to(dev)
+    return _tables[dev]
+
+
 def _get_lib():
     global _lib
     with _lock:
         if _lib is None:
             lib = cuda_build.load("ans_coder")
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.ans_coder_launch.argtypes = [p, p, i64, i64, p, p, p, i, p,
-                                             p, i64, p, p]
-            lib.ans_coder_launch.restype = i
-            lib.ans_coder_error_string.argtypes = [i]
-            lib.ans_coder_error_string.restype = ctypes.c_char_p
+            lib.ans_walk_launch.argtypes = [p, p, i64, i64, p, p, p, i64, p,
+                                            p]
+            lib.ans_walk_launch.restype = i
+            lib.ans_walk_error_string.argtypes = [i]
+            lib.ans_walk_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 
 
-def _check(idx, bit, nsyms, template) -> None:
-    if idx.dim() != 2 or bit.shape != idx.shape:
-        raise ValueError("idx and bit must both be [S, L]")
-    if nsyms.shape != (idx.shape[0],):
-        raise ValueError("nsyms must be [S]")
-    if (idx.dtype != torch.int32 or bit.dtype != torch.uint8
-            or nsyms.dtype != torch.int32):
-        raise TypeError("idx and nsyms must be int32 and bit uint8")
-    if bit.device != idx.device or nsyms.device != idx.device:
-        raise ValueError("idx, bit and nsyms must be on one device")
-    # the kernel indexes the arena with idx unchecked
-    if idx.numel() and (int(idx.min()) < FIXED_PROB
-                        or int(idx.max()) >= ARENA_SIZE):
+def _check_low(idx: torch.Tensor) -> None:
+    """The coder's own check; the probability stage checks the rest."""
+    if idx.numel() and int(idx.min()) < FIXED_PROB:
         raise ValueError(f"idx must lie in [{FIXED_PROB}, {ARENA_SIZE})")
-    if nsyms.numel() and (int(nsyms.min()) < 0
-                          or int(nsyms.max()) > idx.shape[1]):
-        raise ValueError("nsyms must lie in [0, L]")
-    if template is not None and (
-            template.shape != (ARENA_SIZE,) or template.dtype != torch.int32
-            or template.device != idx.device):
-        raise ValueError(f"template must be int32 [{ARENA_SIZE}] on "
-                         f"{idx.device}")
 
 
 def default_cap(L: int) -> int:
@@ -112,7 +122,7 @@ def default_cap(L: int) -> int:
 
 def encode_streams_ans(idx: torch.Tensor, bit: torch.Tensor,
                        nsyms: torch.Tensor,
-                       template: Optional[torch.Tensor] = None):
+                       template: Optional[torch.Tensor] = None, stats=None):
     """rANS-code S unframed symbol lanes: idx int32 [S, L], bit uint8
     [S, L], of which lane s codes its first nsyms[s] (int32 [S]).
 
@@ -120,55 +130,75 @@ def encode_streams_ans(idx: torch.Tensor, bit: torch.Tensor,
     (model.tables.arena_from_template); default: every branch (1, 1, 128).
     Returns (words int32 [S, cap], nwords int32 [S]) on the input's device:
     each lane's emitted words then its 4 flush words, in emission order,
-    as uint32 bit patterns, with nwords <= cap (a lane that outgrows cap
-    relaunches the kernel with room for it).  finalize_ans makes the lane
-    bytes.  CUDA tensors run the kernel; CPU tensors run the plain
-    version."""
-    _check(idx, bit, nsyms, template)
-    if idx.device.type == "cpu":
-        return encode_streams_ans_plain(idx, bit, nsyms, template)
-    if idx.device.type != "cuda":
-        raise ValueError(f"no ANS coder for device {idx.device}")
-    idx, bit, nsyms = idx.contiguous(), bit.contiguous(), nsyms.contiguous()
-    S, L = idx.shape
-    dev = idx.device
-    nwords = torch.zeros(S, dtype=torch.int32, device=dev)
-    cap = default_cap(L)
-    if S == 0:
-        return torch.empty((0, cap), dtype=torch.int32, device=dev), nwords
-    lib = _get_lib()
-    # scratch: one model arena and one probability row per lane, each
-    # written by the kernel before it is read
-    arena = torch.empty((S, ARENA_SIZE), dtype=torch.int32, device=dev)
-    probs = torch.empty((S, max(L, 1)), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    while True:
-        out = torch.empty((S, cap), dtype=torch.int32, device=dev)
-        err = lib.ans_coder_launch(
-            idx.data_ptr(), bit.data_ptr(), S, L, nsyms.data_ptr(),
-            None if template is None else template.data_ptr(),
-            arena.data_ptr(), ARENA_SIZE, probs.data_ptr(), out.data_ptr(),
-            cap, nwords.data_ptr(), stream)
-        encode_streams_ans.launches += 1
-        if err:
-            raise RuntimeError("ans_coder launch failed: "
-                               + lib.ans_coder_error_string(err).decode())
-        nw = nwords.cpu()
-        if int(nw.min()) < 0:
-            _raise_zero_freq(np.flatnonzero(nw.numpy() < 0))
-        need = int(nw.max())
-        if need <= cap:
-            return out, nwords
-        cap = need
-
-
-encode_streams_ans.launches = 0
+    as uint32 bit patterns, with nwords <= cap.  The probability stage
+    runs once; the walk reruns alone when a lane outgrows cap.
+    finalize_ans makes the lane bytes.  A lane that codes a 0 bit at
+    probability 0 raises ValueError.  stats: optional dict that receives
+    the probability stage's (branch_probs) and, on CUDA tensors,
+    walk_ms."""
+    _check_low(idx)
+    probs, zero = bp.branch_probs(idx, bit, template, "adv", nsyms, stats)
+    if bool(zero.any()):
+        _raise_zero_freq(torch.nonzero(zero).flatten().tolist())
+    return bp.timed(lambda: ans_walk(probs, bit, nsyms), idx.device, stats,
+                    "walk_ms")
 
 
 def _raise_zero_freq(lanes) -> None:
     raise ValueError(f"lanes {[int(s) for s in lanes]} code a 0 bit at "
                      "probability 0 (a template branch with prob byte 0): "
                      "freq 0 has no rANS code")
+
+
+def ans_walk(probs: torch.Tensor, bit: torch.Tensor, nsyms: torch.Tensor):
+    """The reverse rANS walk of each lane's first nsyms (probs, bit): probs
+    uint8 [S, L] as branch_probs gives them, bit uint8 [S, L], nsyms int32
+    [S].  Returns (words int32 [S, cap], nwords int32 [S]), cap at least
+    default_cap(L) and at least the longest lane.  CUDA tensors run the
+    kernel, relaunched alone with a larger buffer while a lane overflows;
+    CPU tensors run the plain version."""
+    if probs.dim() != 2 or bit.shape != probs.shape:
+        raise ValueError("probs and bit must both be [S, L]")
+    if nsyms.shape != (probs.shape[0],):
+        raise ValueError("nsyms must be [S]")
+    if (probs.dtype != torch.uint8 or bit.dtype != torch.uint8
+            or nsyms.dtype != torch.int32):
+        raise TypeError("probs and bit must be uint8, nsyms int32")
+    if bit.device != probs.device or nsyms.device != probs.device:
+        raise ValueError("probs, bit and nsyms must be on one device")
+    S, L = probs.shape
+    cap = default_cap(L)
+    if probs.device.type == "cpu":
+        return bp.grow(lambda c: ans_walk_plain(probs, bit, nsyms, c), cap)
+    if probs.device.type != "cuda":
+        raise ValueError(f"no ANS coder for device {probs.device}")
+    dev = probs.device
+    if S == 0:
+        return (torch.empty((0, cap), dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev))
+    probs, bit, nsyms = probs.contiguous(), bit.contiguous(), \
+        nsyms.contiguous()
+    lib = _get_lib()
+    table = _table(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(c):
+        out = torch.empty((S, c), dtype=torch.int32, device=dev)
+        nwords = torch.empty(S, dtype=torch.int32, device=dev)
+        err = lib.ans_walk_launch(probs.data_ptr(), bit.data_ptr(), S, L,
+                                  nsyms.data_ptr(), table.data_ptr(),
+                                  out.data_ptr(), c, nwords.data_ptr(),
+                                  stream)
+        ans_walk.launches += 1
+        if err:
+            raise RuntimeError("ans_coder launch failed: "
+                               + lib.ans_walk_error_string(err).decode())
+        return out, nwords
+
+    return bp.grow(launch, cap)
+
+
+ans_walk.launches = 0
 
 
 def _put(x, start, freq, active):
@@ -183,57 +213,37 @@ def _put(x, start, freq, active):
     return torch.where(active, nx, x), emit, word
 
 
-def encode_streams_ans_plain(idx: torch.Tensor, bit: torch.Tensor,
-                             nsyms: torch.Tensor,
-                             template: Optional[torch.Tensor] = None):
-    """The kernel's plain PyTorch version, same contract as
-    encode_streams_ans.
-
-    A lockstep loop over symbol positions, vectorised over lanes, gathers
-    and scatters one branch a lane of the [S, ARENA_SIZE] arena and
-    records probs [S, L] (the adv next-state table of next_state_adv).
-    Then the reverse walk runs in int64, one pair step a lane at a time,
-    lane s at pair npairs_s + 3 - j in step j, and the emitted words are
-    gathered on the host in emission order."""
-    _check(idx, bit, nsyms, template)
-    S, L = idx.shape
-    dev = idx.device
+def ans_walk_plain(probs: torch.Tensor, bit: torch.Tensor,
+                   nsyms: torch.Tensor, cap: Optional[int] = None):
+    """The walk kernel's plain PyTorch version: the reverse walk in int64
+    with plain // and %, one pair step a lane at a time, lane s at pair
+    npairs_s + 3 - j in step j, and the emitted words gathered on the host
+    in emission order.  Returns (words int32 [S, cap], nwords int32 [S]):
+    with cap given, the words past it are dropped and nwords still counts
+    them, as the kernel does; by default cap is max(default_cap(L), the
+    longest lane).  Raises ValueError on a 0 bit at probability 0."""
+    S, L = probs.shape
+    dev = probs.device
     i64 = torch.int64
-    if template is None:
-        arena = torch.full((S, ARENA_SIZE), IDENTITY_BRANCH, dtype=i64,
-                           device=dev)
-    else:
-        arena = template.to(i64).expand(S, ARENA_SIZE).clone()
-    nxt = next_state_adv(dev)
     seg = torch.arange(S, device=dev)
     n = nsyms.to(i64)
     bits = (bit != 0).to(i64)
-    probs = torch.full((S, L), 128, dtype=i64, device=dev)
-    idx_t = idx.t().to(i64)
-    for t in range(L):
-        i = idx_t[t]
-        adaptive = (i >= 0) & (t < n)
-        safe = i.clamp(min=0)
-        packed = arena[seg, safe]
-        probs[:, t] = torch.where(adaptive, (packed >> 16) & 0xFF, 128)
-        new = nxt[((packed & 0xFFFF) << 1) | bits[:, t]]
-        # in place: one branch per lane changes per step
-        arena[seg, safe] = torch.where(adaptive, new, packed)
-    del arena
-
     # (start, freq) of every pair's two slots; an odd count's last pair
     # holds the sentinel (bit 1, prob 1) in its first slot
     P = max((L + 1) // 2, 1)
     pad = 2 * P - L
     b2 = torch.nn.functional.pad(bits, (0, pad)).view(S, P, 2)
-    p2 = torch.nn.functional.pad(probs, (0, pad), value=128).view(S, P, 2)
+    p2 = torch.nn.functional.pad(probs.to(i64), (0, pad),
+                                 value=128).view(S, P, 2)
     sentinel = torch.arange(2 * P, device=dev).view(1, P, 2) == n.view(S, 1,
                                                                        1)
     b2 = torch.where(sentinel, 1, b2)
     p2 = torch.where(sentinel, 1, p2)
     start = torch.where(b2 != 0, p2, 0)
     freq = torch.where(b2 != 0, 256 - p2, p2)
-    zero = (freq == 0).flatten(1).any(1)
+    coded = sentinel | (torch.arange(2 * P, device=dev).view(1, P, 2)
+                        < n.view(S, 1, 1))
+    zero = ((freq == 0) & coded).flatten(1).any(1)
     if bool(zero.any()):
         _raise_zero_freq(torch.nonzero(zero).flatten())
 
@@ -269,12 +279,25 @@ def encode_streams_ans_plain(idx: torch.Tensor, bit: torch.Tensor,
     lanes = [np.concatenate([words[s][emits[s]], flush[s]])
              for s in range(S)]
     nwords = np.asarray([len(w) for w in lanes], np.int32)
-    cap = max(default_cap(L), int(nwords.max()) if S else 0)
+    if cap is None:
+        cap = max(default_cap(L), int(nwords.max()) if S else 0)
     out = np.zeros((S, cap), np.uint32)
     for s, w in enumerate(lanes):
-        out[s, :len(w)] = w
+        out[s, :min(len(w), cap)] = w[:cap]
     return (torch.from_numpy(out.view(np.int32)).to(dev),
             torch.from_numpy(nwords).to(dev))
+
+
+def encode_streams_ans_plain(idx: torch.Tensor, bit: torch.Tensor,
+                             nsyms: torch.Tensor,
+                             template: Optional[torch.Tensor] = None):
+    """The whole coder's plain PyTorch version, same contract as
+    encode_streams_ans: the probabilities of a lockstep walk over a model
+    arena per lane (branch_probs.arena_probs_plain, no grouping), then
+    ans_walk_plain."""
+    _check_low(idx)
+    probs = bp.arena_probs_plain(idx, bit, template, "adv", nsyms)
+    return ans_walk_plain(probs, bit, nsyms)
 
 
 def finalize_ans(words: torch.Tensor, nwords: torch.Tensor) -> List[bytes]:

@@ -14,10 +14,11 @@ stages, in data-flow order:
   5. assemble each lane (one per segment): for VPX the marker bit, the
      segment's rows in plan_rows order, then the 32 stop bits; for rANS
      the rows alone (batch_encode.py:628, :635-649); PAD after;
-  6. code all lanes of the batch in one launch of the VPX coder kernel
-     (kernels/vpx_coder.py) and apply the stop-byte rule on the host, or
-     in one launch of the ANS coder kernel (kernels/ans_coder.py) and
-     reverse its words on the host.
+  6. code all lanes of the batch: one launch of the probability stage
+     (kernels/branch_probs.py), then one of the VPX coder's walk
+     (kernels/vpx_coder.py) and the stop-byte rule on the host, or one of
+     the ANS coder's walk (kernels/ans_coder.py) and the words reversed on
+     the host.
 
 The JAX package's 128-wide tiling, sort-based compactions, pool DP and int8
 coefficient transport answer TPU rules (serialized gathers, 128-lane
@@ -174,8 +175,10 @@ def encode_images_device(images, version: int = 1, template=None,
     uint32 [ARENA_SIZE] trained-model start state
     (lepton_tpu.api._model_template_packed layout) for every lane.  stats:
     optional dict that receives the stage seconds and counts of
-    assemble_lanes, the coder kernel's time on the card (coder_ms for VPX
-    lanes, ans_coder_ms for rANS lanes) and finalize_s."""
+    assemble_lanes, the whole coder's time (coder_ms for VPX lanes,
+    ans_coder_ms for rANS lanes; CUDA events on the card), on the card its
+    stages' (sort_ms, probs_ms, walk_ms) and longest_run, and
+    finalize_s."""
     if version not in (1, 2, 3):
         raise ValueError(f"no version {version} lanes")
     stats = {} if stats is None else stats
@@ -186,9 +189,9 @@ def encode_images_device(images, version: int = 1, template=None,
     if ans:
         # every symbol of an unframed lane is a branch; PAD follows them
         nsyms = (idx != PAD).sum(1, dtype=torch.int32)
-        run = partial(encode_streams_ans, idx, bit, nsyms, tpl)
+        run = partial(encode_streams_ans, idx, bit, nsyms, tpl, stats)
     else:
-        run = partial(encode_streams, idx, bit, tpl)
+        run = partial(encode_streams, idx, bit, tpl, stats)
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

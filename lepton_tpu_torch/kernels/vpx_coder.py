@@ -1,11 +1,20 @@
-"""Phase B: per-segment adaptive VPX bool coding, one serial coder per lane.
+"""Phase B: per-segment adaptive VPX bool coding, in two stages.
 
 Port of lepton_tpu/kernels/pallas_coder.py (_coder_kernel :44-173 and its
-host side encode_streams_pallas / finalize :176-235).  The kernel is
-csrc/vpx_coder.cu, built with nvcc at first use into build/ and bound with
-ctypes (kernels/cuda_build.py).  encode_streams launches it for CUDA
-tensors and runs the plain PyTorch version, encode_streams_plain, only for
-CPU tensors.
+host side encode_streams_pallas / finalize :176-235), in the shape of the
+JAX package's main path (_twopass_fused_jit, batch_encode.py:242-264):
+
+  1. the probability stage, kernels/branch_probs.py (vpx_scan
+     .model_probs_sorted): each symbol's probability, all branches at once;
+  2. the walk, vpx_walk (vpx_scan.arith_pass): vpx_write over each lane's
+     (probability, bit) stream, one serial coder a lane in registers.  Its
+     kernel is csrc/vpx_coder.cu, built with nvcc at first use into build/
+     and bound with ctypes (kernels/cuda_build.py).
+
+encode_streams chains the two; each stage launches its kernel for CUDA
+tensors and runs its plain PyTorch version only for CPU tensors.
+encode_streams_plain is the whole function's plain version, a lockstep
+walk over a model arena per lane, independent of the grouping.
 
 Symbol encoding (vpx_scan.py:29-30): idx >= 0 -> adaptive branch in the
 model arena; idx == FIXED_PROB -> probability 128, no model update
@@ -21,7 +30,8 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..model.tables import ARENA_SIZE, IDENTITY_BRANCH
+from ..model.tables import ARENA_SIZE
+from . import branch_probs as bp
 from . import cuda_build
 
 PAD = -1
@@ -59,32 +69,18 @@ def _get_lib():
         if _lib is None:
             lib = cuda_build.load("vpx_coder")
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.vpx_coder_launch.argtypes = [p, p, i64, i64, p, p, i, p,
-                                             i64, p, p]
-            lib.vpx_coder_launch.restype = i
-            lib.vpx_coder_error_string.argtypes = [i]
-            lib.vpx_coder_error_string.restype = ctypes.c_char_p
+            lib.vpx_walk_launch.argtypes = [p, p, p, i64, i64, p, i64, p, p]
+            lib.vpx_walk_launch.restype = i
+            lib.vpx_walk_error_string.argtypes = [i]
+            lib.vpx_walk_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 
 
-def _check(idx: torch.Tensor, bit: torch.Tensor,
-           template: Optional[torch.Tensor]) -> None:
-    if idx.dim() != 2 or bit.shape != idx.shape:
-        raise ValueError("idx and bit must both be [S, L]")
-    if idx.dtype != torch.int32 or bit.dtype != torch.uint8:
-        raise TypeError("idx must be int32 and bit uint8")
-    if bit.device != idx.device:
-        raise ValueError("idx and bit must be on one device")
-    # the kernel indexes the arena with idx unchecked
-    if idx.numel() and (int(idx.min()) < FIXED_PROB
-                        or int(idx.max()) >= ARENA_SIZE):
+def _check_low(idx: torch.Tensor) -> None:
+    """The coder's own check; the probability stage checks the rest."""
+    if idx.numel() and int(idx.min()) < FIXED_PROB:
         raise ValueError(f"idx must lie in [{FIXED_PROB}, {ARENA_SIZE})")
-    if template is not None and (
-            template.shape != (ARENA_SIZE,) or template.dtype != torch.int32
-            or template.device != idx.device):
-        raise ValueError(f"template must be int32 [{ARENA_SIZE}] on "
-                         f"{idx.device}")
 
 
 def default_cap(L: int) -> int:
@@ -93,110 +89,94 @@ def default_cap(L: int) -> int:
 
 
 def encode_streams(idx: torch.Tensor, bit: torch.Tensor,
-                   template: Optional[torch.Tensor] = None):
+                   template: Optional[torch.Tensor] = None, stats=None):
     """Encode S padded symbol streams idx int32 [S, L], bit uint8 [S, L].
 
     template: optional int32 [ARENA_SIZE] start arena in the coder layout
     (model.tables.arena_from_template); default: every branch (1, 1, 128).
     Returns (bytes uint8 [S, cap], nbytes int32 [S]) on the input's device,
-    with nbytes <= cap: a lane that outgrows cap relaunches the kernel with
-    room for it.  CUDA tensors run the kernel; CPU tensors run the plain
-    version."""
-    _check(idx, bit, template)
+    with nbytes <= cap.  The probability stage runs once; the walk reruns
+    alone when a lane outgrows cap.  stats: optional dict that receives
+    the probability stage's (branch_probs) and, on CUDA tensors, walk_ms."""
+    _check_low(idx)
+    probs, _ = bp.branch_probs(idx, bit, template, "vpx", stats=stats)
+    return bp.timed(lambda: vpx_walk(idx, bit, probs), idx.device, stats,
+                    "walk_ms")
+
+
+def vpx_walk(idx: torch.Tensor, bit: torch.Tensor, probs: torch.Tensor):
+    """vpx_write over each lane's (probs, bit), PAD slots (idx == PAD)
+    skipped: probs uint8 [S, L] as branch_probs gives them.  Returns
+    (bytes uint8 [S, cap], nbytes int32 [S]), cap at least default_cap(L)
+    and at least the longest lane.  CUDA tensors run the kernel,
+    relaunched alone with a larger buffer while a lane overflows; CPU
+    tensors run the plain version."""
+    if idx.dim() != 2 or bit.shape != idx.shape or probs.shape != idx.shape:
+        raise ValueError("idx, bit and probs must all be [S, L]")
+    if (idx.dtype != torch.int32 or bit.dtype != torch.uint8
+            or probs.dtype != torch.uint8):
+        raise TypeError("idx must be int32, bit and probs uint8")
+    if bit.device != idx.device or probs.device != idx.device:
+        raise ValueError("idx, bit and probs must be on one device")
+    S, L = idx.shape
+    cap = default_cap(L)
     if idx.device.type == "cpu":
-        return encode_streams_plain(idx, bit, template)
+        return bp.grow(lambda c: vpx_walk_plain(idx, bit, probs, c), cap)
     if idx.device.type != "cuda":
         raise ValueError(f"no VPX coder for device {idx.device}")
-    idx, bit = idx.contiguous(), bit.contiguous()
-    S, L = idx.shape
     dev = idx.device
-    nbytes = torch.zeros(S, dtype=torch.int32, device=dev)
-    cap = default_cap(L)
     if S == 0:
-        return torch.empty((0, cap), dtype=torch.uint8, device=dev), nbytes
+        return (torch.empty((0, cap), dtype=torch.uint8, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev))
+    idx, bit, probs = idx.contiguous(), bit.contiguous(), probs.contiguous()
     lib = _get_lib()
-    # scratch: one model arena per lane, filled by the kernel itself
-    arena = torch.empty((S, ARENA_SIZE), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    while True:
-        out = torch.empty((S, cap), dtype=torch.uint8, device=dev)
-        err = lib.vpx_coder_launch(
-            idx.data_ptr(), bit.data_ptr(), S, L,
-            None if template is None else template.data_ptr(),
-            arena.data_ptr(), ARENA_SIZE, out.data_ptr(), cap,
-            nbytes.data_ptr(), stream)
-        encode_streams.launches += 1
+
+    def launch(c):
+        out = torch.empty((S, c), dtype=torch.uint8, device=dev)
+        nbytes = torch.empty(S, dtype=torch.int32, device=dev)
+        err = lib.vpx_walk_launch(idx.data_ptr(), bit.data_ptr(),
+                                  probs.data_ptr(), S, L, out.data_ptr(), c,
+                                  nbytes.data_ptr(), stream)
+        vpx_walk.launches += 1
         if err:
             raise RuntimeError("vpx_coder launch failed: "
-                               + lib.vpx_coder_error_string(err).decode())
-        need = int(nbytes.max())
-        if need <= cap:
-            return out, nbytes
-        cap = need
+                               + lib.vpx_walk_error_string(err).decode())
+        return out, nbytes
+
+    return bp.grow(launch, cap)
 
 
-encode_streams.launches = 0
+vpx_walk.launches = 0
 
 
-def _branch_update(fc, tc, obs):
-    """Branch::record_obs_and_update (branch.hh:82-100) on int64 tensors of
-    pre-observation counts; returns the packed fc | tc<<8 | prob<<16 with
-    the prob wrapped to 8 bits like the host's uint8 store (the tc == 0
-    corner that only templates reach yields 256)."""
-    ovf = torch.where(obs, tc == 0xFF, fc == 0xFF)
-    never = ovf & torch.where(obs, fc == 1, tc == 1)
-    nfc = torch.where(obs, fc, fc + 1)
-    ntc = torch.where(obs, tc + 1, tc)
-    nprob = (nfc << 8) // (fc + tc + 1)
-    hfc = torch.where(obs, (1 + fc) >> 1, 129)
-    htc = torch.where(obs, 129, (1 + tc) >> 1)
-    nfc = torch.where(ovf, hfc, nfc)
-    ntc = torch.where(ovf, htc, ntc)
-    nprob = torch.where(ovf, (hfc << 8) // (hfc + htc), nprob)
-    nfc = torch.where(never, torch.where(obs, 1, 0xFF), nfc)
-    ntc = torch.where(never, torch.where(obs, 0xFF, 1), ntc)
-    nprob = torch.where(never, torch.where(obs, 0, 255), nprob)
-    return nfc | (ntc << 8) | ((nprob & 0xFF) << 16)
-
-
-def encode_streams_plain(idx: torch.Tensor, bit: torch.Tensor,
-                         template: Optional[torch.Tensor] = None):
-    """The kernel's plain PyTorch version, same contract as encode_streams.
-
-    A lockstep loop over symbol positions, vectorized over segments, in
-    int64 with & 0xFFFFFFFF for the uint32 lowvalue (like
-    vpx_scan.encode_streams, vpx_scan.py:52-116).  Each step gathers and
-    scatters one branch per lane of the [S, ARENA_SIZE] arena.  Emitted
-    bytes and their carry flags are recorded per step, and the carries are
-    resolved on the host at the end, in emission order."""
-    _check(idx, bit, template)
+def vpx_walk_plain(idx: torch.Tensor, bit: torch.Tensor, probs: torch.Tensor,
+                   cap: Optional[int] = None):
+    """The walk kernel's plain PyTorch version: the arith_pass chain
+    (vpx_scan.py:630-665) as a lockstep loop over symbol positions,
+    vectorised over lanes, in int64 with & 0xFFFFFFFF for the uint32
+    lowvalue.  Emitted bytes and their carry flags are recorded per step
+    and the carries resolved on the host at the end, in emission order.
+    Returns (bytes uint8 [S, cap], nbytes int32 [S]): with cap given, the
+    bytes past it are dropped and nbytes still counts them, as the kernel
+    does; by default cap is max(default_cap(L), the longest lane)."""
     S, L = idx.shape
     dev = idx.device
     i64 = torch.int64
-    if template is None:
-        arena = torch.full((S, ARENA_SIZE), IDENTITY_BRANCH, dtype=i64,
-                           device=dev)
-    else:
-        arena = template.to(i64).expand(S, ARENA_SIZE).clone()
     norm = torch.as_tensor(C.VPX_NORM, dtype=i64, device=dev)
-    seg = torch.arange(S, device=dev)
     low = torch.zeros(S, dtype=i64, device=dev)
     rng = torch.full((S,), 255, dtype=i64, device=dev)
     count = torch.full((S,), -24, dtype=i64, device=dev)
     emits = torch.zeros((L, S), dtype=torch.bool, device=dev)
     bytes_ = torch.zeros((L, S), dtype=torch.uint8, device=dev)
     carries = torch.zeros((L, S), dtype=torch.bool, device=dev)
-    idx_t = idx.t().to(i64)
+    valid_t = idx.t() != PAD
     bit_t = bit.t() != 0
+    prob_t = probs.t().to(i64)
     for t in range(L):
-        i = idx_t[t]
+        valid = valid_t[t]
         b = bit_t[t]
-        valid = i != PAD
-        adaptive = i >= 0
-        safe = torch.clamp(i, min=0)
-        packed = arena[seg, safe]
-        prob = torch.where(adaptive, (packed >> 16) & 0xFF, 128)
-        split = 1 + (((rng - 1) * prob) >> 8)
+        split = 1 + (((rng - 1) * prob_t[t]) >> 8)
         low2 = torch.where(b, (low + split) & 0xFFFFFFFF, low)
         rng2 = torch.where(b, rng - split, split)
         shift = norm[rng2]
@@ -215,14 +195,12 @@ def encode_streams_plain(idx: torch.Tensor, bit: torch.Tensor,
         rng = torch.where(valid, rng2 << shift, rng)
         count = torch.where(valid, torch.where(emit, count2 - 8, count2),
                             count)
-        new = _branch_update(packed & 0xFF, (packed >> 8) & 0xFF, b)
-        # in place: one branch per lane changes per step
-        arena[seg, safe] = torch.where(adaptive, new, packed)
 
     emits, bytes_, carries = (x.t().cpu().numpy()
                               for x in (emits, bytes_, carries))
     nbytes = emits.sum(axis=1).astype(np.int32)
-    cap = max(default_cap(L), int(nbytes.max()) if S else 0)
+    if cap is None:
+        cap = max(default_cap(L), int(nbytes.max()) if S else 0)
     out = np.zeros((S, cap), dtype=np.uint8)
     for s in range(S):
         bs = bytes_[s][emits[s]]
@@ -233,9 +211,20 @@ def encode_streams_plain(idx: torch.Tensor, bit: torch.Tensor,
                 bs[j] = 0
                 j -= 1
             bs[j] += 1
-        out[s, :len(bs)] = bs
+        out[s, :min(len(bs), cap)] = bs[:cap]
     return (torch.from_numpy(out).to(dev),
             torch.from_numpy(nbytes).to(dev))
+
+
+def encode_streams_plain(idx: torch.Tensor, bit: torch.Tensor,
+                         template: Optional[torch.Tensor] = None):
+    """The whole coder's plain PyTorch version, same contract as
+    encode_streams: the probabilities of a lockstep walk over a model arena
+    per lane (branch_probs.arena_probs_plain, no grouping), then
+    vpx_walk_plain."""
+    _check_low(idx)
+    return vpx_walk_plain(idx, bit,
+                          bp.arena_probs_plain(idx, bit, template, "vpx"))
 
 
 def finalize(out: torch.Tensor, nbytes: torch.Tensor) -> List[bytes]:

@@ -35,9 +35,9 @@ from ..model.tables import (ARENA_SIZE, IDENTITY_BRANCH, TABLE_OFFSETS,
                             TABLE_STRIDES)
 from . import cuda_build
 from .ans_coder import RANS64_L, next_state_adv
+from .branch_probs import branch_update
 from .contexts import bit_length, idct_blocks
 from .encode_pipeline import plan_rows
-from .vpx_coder import _branch_update
 
 LOTS_OF_BITS = 0x40000000
 MAX_TABLES = 4          # colour tables a lane may use (one request's)
@@ -384,8 +384,8 @@ class _Lanes:
         self.four = torch.arange(4, device=dev)
         # every branch's next state: index (tc << 8 | fc) << 1 | bit
         state = torch.arange(1 << 17, device=dev)
-        self.next = _branch_update((state >> 1) & 0xFF, (state >> 9) & 0xFF,
-                                   (state & 1) != 0)
+        self.next = branch_update((state >> 1) & 0xFF, (state >> 9) & 0xFF,
+                                  (state & 1) != 0)
 
     def _refill(self, active):
         need = active & (self.count < 0)

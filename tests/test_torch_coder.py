@@ -17,7 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from lepton_tpu.api import _model_template_packed  # noqa: E402
 from lepton_tpu.coder.vpx import BoolWriter  # noqa: E402
 from lepton_tpu.kernels import pallas_coder, vpx_scan  # noqa: E402
-from lepton_tpu_torch.kernels import vpx_coder  # noqa: E402
+from lepton_tpu_torch.kernels import branch_probs, vpx_coder  # noqa: E402
 from lepton_tpu_torch.model.branch import update_branch  # noqa: E402
 from lepton_tpu_torch.model.tables import (ARENA_SIZE,  # noqa: E402
                                            arena_from_template)
@@ -114,9 +114,9 @@ def test_branch_update_full_domain():
     prob wrapped to 8 bits as the host stores it."""
     fc, tc, obs = np.meshgrid(np.arange(256), np.arange(256), [0, 1],
                               indexing="ij")
-    got = vpx_coder._branch_update(torch.as_tensor(fc.ravel()),
-                                   torch.as_tensor(tc.ravel()),
-                                   torch.as_tensor(obs.ravel() != 0)).numpy()
+    got = branch_probs.branch_update(torch.as_tensor(fc.ravel()),
+                                     torch.as_tensor(tc.ravel()),
+                                     torch.as_tensor(obs.ravel() != 0)).numpy()
     want = np.array([
         (lambda r: r[0] | (r[1] << 8) | ((r[2] & 0xFF) << 16))(
             update_branch(int(f), int(t), 0, bool(o)))

@@ -1,7 +1,8 @@
-"""The port on a CUDA card: the VPX and ANS coder kernels and the decoder
-kernel (both readers) against their plain versions, the roofline probe
-against its plain loop, and the whole encode and decode, containers v1 to
-v3, on cuda against the same on the CPU.
+"""The port on a CUDA card: the encode coders' kernels (the probability
+stage and the VPX and rANS walks) and the decoder kernel (both readers)
+against their plain versions, the roofline probe against its plain loop,
+and the whole encode and decode, containers v1 to v3, on cuda against the
+same on the CPU.
 
 This file imports no JAX, so it runs where only torch is installed:
 
@@ -20,6 +21,7 @@ from PIL import Image
 import chip_smoke
 from lepton_tpu_torch import api
 from lepton_tpu_torch.kernels import ans_coder, vpx_coder, vpx_decoder
+from lepton_tpu_torch.kernels import branch_probs as bp
 from lepton_tpu_torch.model.tables import ARENA_SIZE, arena_from_template
 from lepton_tpu_torch.probes import decode_roofline
 
@@ -38,6 +40,12 @@ def _template():
     raw[:, 2] = 1 + raw[:, 2] % 254
     packed = api.pack_model(raw)
     return packed, arena_from_template(packed)
+
+
+def _counts(*walks):
+    """The launch counts of the probability stage's two kernels and of
+    `walks`."""
+    return tuple(f.launches for f in (bp.run_heads, bp.walk_runs) + walks)
 
 
 def _streams(idxs, bits, template, device):
@@ -61,10 +69,113 @@ def test_kernel_matches_plain(cuda, start):
         template = arena_from_template(api.pack_model(raw))
     idxs, bits = vpx_coder.build_symbol_streams(
         chip_smoke.adversarial_segments())
-    before = vpx_coder.encode_streams.launches
+    before = _counts(vpx_coder.vpx_walk)
     assert (_streams(idxs, bits, template, cuda)
             == _streams(idxs, bits, template, "cpu"))
-    assert vpx_coder.encode_streams.launches > before
+    assert _counts(vpx_coder.vpx_walk) == tuple(n + 1 for n in before)
+
+
+def _stage(framed, start, device):
+    """chip_smoke.stage_inputs on `device`: (idx, bit, nsyms) and the start
+    template (None from the identity)."""
+    lanes, tpl = chip_smoke.stage_inputs(device, framed)
+    return lanes, tpl if start == "template" else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["identity", "template"])
+@pytest.mark.parametrize("rule", ["vpx", "adv"])
+def test_branch_probs_kernel_matches_plain(cuda, rule, start):
+    """Empty, one-symbol, odd and even lanes with branch reuse, FIXED_PROB
+    and PAD slots, one branch past both count overflows, from the identity
+    and from a template with a prob-0 branch; then a 0 bit at that branch
+    (flagged under the adv rule only).  Each of the stage's two kernels
+    equals its plain version, and the stage equals the plain stage."""
+    (idx, bit, nsyms), tpl = _stage(rule == "vpx", start, cuda)
+    ns = None if rule == "vpx" else nsyms
+    keys, shift = bp.group(idx, bit, ns)
+    heads = bp.run_heads(keys, shift)
+    want_heads = bp.run_heads_plain(keys, shift)
+    # the kernel's list comes in no fixed order
+    assert torch.equal(torch.sort(heads).values, want_heads)
+    got = bp.walk_runs(keys, shift, heads, idx.shape, tpl, rule)
+    want = bp.walk_runs_plain(keys, shift, want_heads, idx.shape, tpl, rule)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2] == want[2]
+    before = _counts()
+    probs, zero = bp.branch_probs(idx, bit, tpl, rule, ns)
+    assert _counts() == tuple(n + 1 for n in before)
+    want, wzero = bp.branch_probs_plain(idx, bit, tpl, rule, ns)
+    assert torch.equal(probs, want) and torch.equal(zero, wzero)
+    packed, _, bad = chip_smoke.prob0_lanes()
+    idx, bit, nsyms = (torch.as_tensor(a, device=cuda)
+                       for a in chip_smoke.unframed_lanes(bad))
+    tpl = arena_from_template(packed).to(cuda)
+    _, zero = bp.branch_probs(idx, bit, tpl, rule, nsyms)
+    assert zero.tolist() == [False, rule == "adv"]
+
+
+@pytest.mark.cuda
+def test_branch_probs_kernel_hot_branch(cuda):
+    """64 lanes that all share one hot branch, 300,000 occurrences each:
+    64 runs of 300,000 steps, the kernel's longest."""
+    n = 300_000
+    bits = np.random.default_rng(3).integers(0, 2, (64, n), dtype=np.uint8)
+    idx = torch.full((64, n), 4321, dtype=torch.int32, device=cuda)
+    bit = torch.as_tensor(bits, device=cuda)
+    stats = {}
+    for rule in ("vpx", "adv"):
+        probs, _ = bp.branch_probs(idx, bit, None, rule, stats=stats)
+        assert stats["longest_run"] == n
+        want, _ = bp.branch_probs_plain(idx.cpu(), bit.cpu(), None, rule)
+        assert torch.equal(probs.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["identity", "template"])
+def test_vpx_walk_kernel_matches_plain(cuda, start):
+    (idx, bit, _), tpl = _stage(True, start, cuda)
+    probs, _ = bp.branch_probs(idx, bit, tpl, "vpx")
+    before = vpx_coder.vpx_walk.launches
+    got = vpx_coder.finalize(*vpx_coder.vpx_walk(idx, bit, probs))
+    assert vpx_coder.vpx_walk.launches == before + 1
+    assert got == vpx_coder.finalize(*vpx_coder.vpx_walk_plain(idx, bit,
+                                                               probs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["identity", "template"])
+def test_ans_walk_kernel_matches_plain(cuda, start):
+    (idx, bit, nsyms), tpl = _stage(False, start, cuda)
+    probs, _ = bp.branch_probs(idx, bit, tpl, "adv", nsyms)
+    before = ans_coder.ans_walk.launches
+    got = ans_coder.finalize_ans(*ans_coder.ans_walk(probs, bit, nsyms))
+    assert ans_coder.ans_walk.launches == before + 1
+    assert got == ans_coder.finalize_ans(*ans_coder.ans_walk_plain(
+        probs, bit, nsyms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coder", ["vpx", "ans"])
+def test_walk_kernel_relaunches_on_overflow(cuda, coder, monkeypatch):
+    """A 4-unit first cap: the walk kernel runs twice and gives the streams
+    of a roomy first launch."""
+    (idx, bit, nsyms), _ = _stage(coder == "vpx", "identity", cuda)
+    if coder == "vpx":
+        mod = vpx_coder
+        probs, _ = bp.branch_probs(idx, bit)
+        walk = vpx_coder.vpx_walk
+        run = lambda: vpx_coder.finalize(*walk(idx, bit, probs))
+    else:
+        mod = ans_coder
+        probs, _ = bp.branch_probs(idx, bit, None, "adv", nsyms)
+        walk = ans_coder.ans_walk
+        run = lambda: ans_coder.finalize_ans(*walk(probs, bit, nsyms))
+    want = run()
+    monkeypatch.setattr(mod, "default_cap", lambda L: 4)
+    before = walk.launches
+    assert run() == want
+    assert walk.launches == before + 2
 
 
 @pytest.mark.cuda
@@ -164,10 +275,10 @@ def test_ans_coder_kernel_matches_plain(cuda, start):
     template = _template()[1] if start == "template" else None
     lanes = chip_smoke.unframed_lanes(
         chip_smoke.ans_adversarial_segments(4000))
-    before = ans_coder.encode_streams_ans.launches
+    before = _counts(ans_coder.ans_walk)
     assert (_ans_streams(lanes, template, cuda)
             == _ans_streams(lanes, template, "cpu"))
-    assert ans_coder.encode_streams_ans.launches > before
+    assert _counts(ans_coder.ans_walk) == tuple(n + 1 for n in before)
 
 
 @pytest.mark.cuda
@@ -238,7 +349,13 @@ def test_cuda_path_never_runs_plain(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a plain version ran on the CUDA path")
     for mod, name in ((vpx_coder, "encode_streams_plain"),
+                      (vpx_coder, "vpx_walk_plain"),
                       (ans_coder, "encode_streams_ans_plain"),
+                      (ans_coder, "ans_walk_plain"),
+                      (bp, "branch_probs_plain"),
+                      (bp, "run_heads_plain"),
+                      (bp, "walk_runs_plain"),
+                      (bp, "arena_probs_plain"),
                       (vpx_decoder, "decode_lanes_plain")):
         monkeypatch.setattr(mod, name, boom)
     data = chip_smoke.make_photo(6, 96, 64)
