@@ -37,7 +37,10 @@ Phases (any failure exits non-zero, before the result line):
   7. the main decode path: batch_decompress_device on phase 4's four .lep
      files, with the decoder's launch count read around it; each result
      must be its original JPEG byte for byte, the device planes those of
-     the parse, and image 0 alone must give the same bytes.  Then the
+     the parse, and image 0 alone must give the same bytes.  The launch's
+     branch-cache counters (inserts, fall-through reads a lane) must equal
+     their replay from the encode lanes, printed with the distinct
+     branches a lane.  Then the
      decoder is timed again on all 64 lanes and on the longest lane alone,
      and held against its plain version on all 64 lanes of the main path,
      each cut to its first rows of a few dozen blocks, with plane widths,
@@ -56,7 +59,8 @@ Phases (any failure exits non-zero, before the result line):
      same bytes; small images give equal v2 and v3 bytes on cuda and cpu;
      then batch_decompress_device on the four v3 files, with the readers'
      launches read around it (one of the rANS reader), gives back every
-     original JPEG byte for byte.  Then the ANS coder (split into sort,
+     original JPEG byte for byte, with its branch-cache counters held
+     against the same replay.  Then the ANS coder (split into sort,
      probability stage and walk) and the rANS reader are timed again on
      all 64 lanes and on the longest lane alone;
  10. hold the rANS reader against its plain version: small v3 files with
@@ -544,6 +548,32 @@ def cut_lanes(inputs: dict, rows_per_comp: int, width: int) -> dict:
                 rows=torch.as_tensor(cut, device=dev))
 
 
+def cache_replay(descs, dev, slots: int) -> np.ndarray:
+    """int64 [S, 3]: each lane's (inserts, fall-through reads, distinct
+    branches) of the decoder's branch cache of `slots` entries, replayed
+    from the unframed encode lanes of `descs`, which are the decoder's
+    reads in order (a VPX lane's marker bit reads no branch)."""
+    from lepton_tpu_torch.kernels import batch_encode, vpx_coder, vpx_decoder
+    idx, _, _ = batch_encode.assemble_lanes(descs, dev, framed=False)
+    idx = idx.cpu().numpy()
+    return np.asarray([vpx_decoder.cache_fill(row[row != vpx_coder.PAD],
+                                              slots) for row in idx])
+
+
+def check_cache(counts, replay, what: str) -> str:
+    """The kernel's cache counters (int32 [S, 2] on the card) against their
+    replay; returns a line that describes both."""
+    got = counts.cpu().numpy()
+    if not np.array_equal(got, replay[:, :2]):
+        bad = np.flatnonzero((got != replay[:, :2]).any(1)).tolist()
+        fail(f"{what}: branch cache counters differ from their replay on "
+             f"lanes {bad[:8]}")
+    return (f"inserts {got[:, 0].min()}-{got[:, 0].max()} a lane, "
+            f"fall-through reads {int(got[:, 1].sum())} in all, distinct "
+            f"branches {replay[:, 2].min()}-{replay[:, 2].max()} a lane "
+            f"(equal to the replay from the encode lanes)")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -765,6 +795,7 @@ def main() -> None:
     torch.cuda.synchronize(dev)
     dwall = time.perf_counter() - t
     dlaunches = vpx_decoder.decode_lanes.launches
+    main_counts = vpx_decoder.decode_lanes.cache_counts
     dpeak = torch.cuda.max_memory_allocated(dev)
     if dlaunches < 1:
         fail("the main decode path launched no decoder kernel")
@@ -818,6 +849,12 @@ def main() -> None:
     reads = lane_symbols - STOP_BITS
     _, dalone_ms = timed_cuda(
         lambda: vpx_decoder.decode_lanes(**one_lane(inputs, kd)))
+    slots = vpx_decoder.cache_slots()
+    replay = cache_replay(descs, dev, slots)
+    cache_line = check_cache(main_counts, replay, "v1 main path")
+    log(f"[7] branch cache of {slots} slots "
+        f"({vpx_decoder.smem_bytes(slots)} B of shared memory a CTA) on the "
+        f"main path: {cache_line}")
     log(f"[7] device planes equal the parse's; decoder kernel alone: all "
         f"{len(reads)} lanes {dagain_ms:.2f} ms; longest lane ({kd}, "
         f"{lane_blocks[kd]} blocks) only {dalone_ms:.2f} ms, "
@@ -860,6 +897,12 @@ def main() -> None:
         "equal_to_plain": True,
         "plain_inputs": cut_input,
         "kernel_ms_on_plain_inputs": cut_k_ms,
+        "longest_lane_ms": dalone_ms,
+        "ns_a_read_longest_lane": dalone_ms * 1e6 / int(reads[kd]),
+        "cache_slots": slots,
+        "cache_inserts_max": int(replay[:, 0].max()),
+        "cache_fall_throughs": int(replay[:, 1].sum()),
+        "distinct_branches_max": int(replay[:, 2].max()),
     })
 
     # ---- phase 8: the ANS coder against plain on adversarial lanes
@@ -975,6 +1018,7 @@ def main() -> None:
     torch.cuda.synchronize(dev)
     dwall3 = time.perf_counter() - t
     rlaunches = (decode_lanes.launches, decode_lanes.ans_launches)
+    main_counts3 = decode_lanes.cache_counts
     dpeak3 = torch.cuda.max_memory_allocated(dev)
     if rlaunches != (0, 1):
         fail(f"the v3 decode made (VPX, rANS) reader launches {rlaunches}, "
@@ -1004,6 +1048,8 @@ def main() -> None:
     del coef, planes
     _, ralone_ms = timed_cuda(
         lambda: vpx_decoder.decode_lanes(**one_lane(inputs3, k3)))
+    log(f"[9] branch cache of {slots} slots on the v3 main path: "
+        f"{check_cache(main_counts3, replay, 'v3 main path')}")
     log(f"[9] v3 device planes equal the parse's; rANS reader alone: all "
         f"{len(lane_syms3)} lanes {ragain_ms:.2f} ms; lane {k3} "
         f"({lane_syms3[k3]} reads, one a coded symbol) only "
@@ -1173,6 +1219,12 @@ def main() -> None:
         "equal_to_plain": True,
         "plain_inputs": rcut_input,
         "kernel_ms_on_plain_inputs": rcut_k_ms,
+        "longest_lane_ms": ralone_ms,
+        "ns_a_read_longest_lane": ralone_ms * 1e6 / int(lane_syms3[k3]),
+        "cache_slots": slots,
+        "cache_inserts_max": int(replay[:, 0].max()),
+        "cache_fall_throughs": int(replay[:, 1].sum()),
+        "distinct_branches_max": int(replay[:, 2].max()),
     })
     # the timed mixed chain: 4 bytes out after a 2 MB arena fill, and about
     # 5 + 3 * 12 integer ops a step

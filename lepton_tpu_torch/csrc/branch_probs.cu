@@ -18,8 +18,9 @@
 //
 // Bound: not bytes (9 bytes of key and probability a symbol) but the
 // longest run: each run is a dependent chain of branch updates, one
-// integer division a step.  The coders walked the same chains interleaved
-// per lane through a device-memory arena, one L2 round trip a symbol.
+// division a step (a multiply by a reciprocal, vpx_branch.cuh).  The
+// coders walked the same chains interleaved per lane through a
+// device-memory arena, one L2 round trip a symbol.
 //
 // Design: two kernels, each with its own launch function and wrapper
 // (kernels/branch_probs.py run_heads, walk_runs).  run_heads_kernel, one
@@ -27,12 +28,13 @@
 // from the previous key's) into a dense list, in no fixed order, with one
 // atomicAdd a warp.  walk_runs_kernel, one thread a run, walks its run
 // with the branch in a register, loading the next key one step ahead, and
-// scatters one byte a symbol.  With the runs
-// dense, a warp walks 32 runs and the longest runs share their SMs with
-// little other work.  The division stays in registers (vpx_branch.cuh,
-// unchanged); no table in device memory sits on the chain.  Runs are short
-// (most tables are indexed by coefficient position, a few hits a block),
-// so millions of runs walk at once.  The longest run is reduced per block
+// scatters one byte a symbol.  With the runs dense, a warp walks 32 runs
+// and the longest runs share their SMs with little other work.  The
+// update's division is a multiply by a reciprocal from a 2 KB table each
+// block keeps in shared memory (vpx_branch.cuh, the decoder's rule); no
+// table in device memory sits on the chain.  Runs are short (most tables
+// are indexed by coefficient position, a few hits a block), so millions
+// of runs walk at once.  The longest run is reduced per block
 // and written with one atomicMax a block.  Under the adv rule a run that
 // codes a 0 bit at probability 0 (freq 0, no rANS code) flags its lane.
 //
@@ -75,6 +77,9 @@ walk_runs_kernel(const uint64_t* __restrict__ keys, int64_t n, int shift,
                     uint8_t* __restrict__ probs, uint8_t* __restrict__ zero,
                     int32_t* __restrict__ longest) {
     __shared__ int32_t warp_max[kThreads / 32];
+    __shared__ uint32_t rcp[vpx::kRecipSize];
+    vpx::fill_recip(rcp, threadIdx.x, kThreads);
+    __syncthreads();
     const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads
                       + threadIdx.x;
     int32_t run = 0;
@@ -97,9 +102,9 @@ walk_runs_kernel(const uint64_t* __restrict__ keys, int64_t n, int shift,
             lp[(k >> 1) & pmask] = static_cast<uint8_t>(p);
             if (kAdv) {
                 z |= (p == 0) & !b;
-                st = vpx::update_branch_adv(st, b);
+                st = vpx::update_branch_adv(st, b, rcp);
             } else {
-                st = vpx::update_branch(st, b);
+                st = vpx::update_branch(st, b, rcp);
             }
             ++run;
             if ((kn >> shift) != br) break;

@@ -7,7 +7,9 @@ decode_segments_pallas_multi :784-979).  The kernel is csrc/vpx_decoder.cu,
 a template on the reader, built with nvcc at first use into build/ and
 bound with ctypes (kernels/cuda_build.py).  decode_lanes launches it for
 CUDA tensors and runs the plain PyTorch version, decode_lanes_plain, only
-for CPU tensors.
+for CPU tensors.  Each of the kernel's CTAs keeps its lane's branches in a
+cache in shared memory of cache_slots() entries (cache_fill replays what
+it holds).
 
 The host plan (plan_decode) turns one or many requests of one coder into
 the kernel's inputs: every segment of every request is one lane; each lane
@@ -57,6 +59,15 @@ LUT_LAYOUT = 192
 _LAYOUT_TABLES = ("nz_7x7", "exp_7x7", "residual_noise", "sign", "exp_x",
                   "residual_thresh", "exp_dc", "residual_noise_dc",
                   "nz_8x1", "nz_1x8")
+
+# the kernel's branch cache (csrc/vpx_decoder.cu): shared memory before it
+# (kFixedSmem), slots probed for a branch (kProbes), the hash multiplier
+# (kHashMul), and what one CTA may hold on the H100 (227 KB)
+FIXED_SMEM = 10240
+CACHE_PROBES = 8
+CACHE_HASH = 0x9E3779B1
+CACHE_ENTRY_BYTES = 8
+SMEM_LIMIT = 232448
 
 _lib = None
 _lock = threading.Lock()
@@ -203,23 +214,66 @@ def split_planes(plan: DecodePlan, coef, err) -> list:
     return out
 
 
+def cache_slots() -> int:
+    """Entries of each CTA's branch cache: 192 KB, over five times the
+    4,000 to 4,500 distinct branches a lane of a 12 MP photo touches, so
+    that an 8-slot linear probe almost never finds its slots full."""
+    return 24576
+
+
+def smem_bytes(slots: int) -> int:
+    """Dynamic shared memory of one CTA with a cache of `slots` entries."""
+    return FIXED_SMEM + CACHE_ENTRY_BYTES * slots
+
+
+def cache_fill(branches, slots: int) -> tuple:
+    """(inserts, fall-through reads, distinct branches) of one lane's
+    branch cache, replayed: `branches` is the lane's reads' branch indices
+    in order (int array).  Each distinct branch, in order of first use,
+    takes the first empty slot of its CACHE_PROBES probed ones or, finding
+    none, sends every read of it to the arena."""
+    b = np.asarray(branches, np.int64).ravel()
+    if not len(b):
+        return 0, 0, 0
+    uniq, first, counts = np.unique(b, return_index=True, return_counts=True)
+    order = np.argsort(first, kind="stable")
+    keys = (uniq[order] + 1) & 0xFFFFFFFF
+    home = ((keys * CACHE_HASH) & 0xFFFFFFFF) * slots >> 32
+    taken = np.zeros(slots, bool)
+    inserts = falls = 0
+    for h, n in zip(home.tolist(), counts[order].tolist()):
+        for i in range(CACHE_PROBES):
+            slot = (h + i) % slots
+            if not taken[slot]:
+                taken[slot] = True
+                inserts += 1
+                break
+        else:
+            falls += n
+    return inserts, falls, len(uniq)
+
+
 # ---------------------------------------------------------------------------
 # The kernel wrapper
 # ---------------------------------------------------------------------------
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of csrc/vpx_decoder.cu."""
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.vpx_decoder_launch.argtypes = [
+        p, i64, p, p, i64, p, p, p, p, p, i, p, i, i, p, p, i, p, i, p]
+    lib.vpx_decoder_launch.restype = i
+    lib.vpx_decoder_error_string.argtypes = [i]
+    lib.vpx_decoder_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _get_lib():
     global _lib
     with _lock:
         if _lib is None:
-            lib = cuda_build.load("vpx_decoder")
-            p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.vpx_decoder_launch.argtypes = [
-                p, i64, p, p, i64, p, p, p, p, p, i, p, i, i, p, p, i, p]
-            lib.vpx_decoder_launch.restype = i
-            lib.vpx_decoder_error_string.argtypes = [i]
-            lib.vpx_decoder_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(cuda_build.load("vpx_decoder"))
     return _lib
 
 
@@ -292,7 +346,17 @@ def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
     and each lane's sticky stream-inconsistency flag.  CUDA tensors run
     the kernel (each launch with the VPX reader counts in
     decode_lanes.launches, each with the rANS reader in
-    decode_lanes.ans_launches); CPU tensors run the plain version."""
+    decode_lanes.ans_launches); CPU tensors run the plain version.
+
+    The kernel runs a CTA a lane; its first warp runs the reads (every
+    lane the same ones) and splits each block's 64-wide work across its
+    lanes, and every read looks its branch up in the CTA's cache of
+    cache_slots() entries in shared memory, going to the lane's arena in
+    device memory only on a branch's first use or when the branch's probed
+    slots are taken (see csrc/vpx_decoder.cu).  After each
+    launch decode_lanes.cache_counts holds its int32 [S, 2] (inserts,
+    fall-through reads) a lane, on the card and not synchronised.  A cache
+    whose shared memory the card refuses raises."""
     if data.device.type == "cpu":
         return decode_lanes_plain(data, dlen, lanes, rows, tables,
                                   ring_width, ring_comps, n_blocks, template,
@@ -307,6 +371,11 @@ def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
     err = torch.zeros(S, dtype=torch.int32, device=dev)
     if S == 0:
         return coef, err
+    slots = cache_slots()
+    if slots < 1 or smem_bytes(slots) > SMEM_LIMIT:
+        raise ValueError(f"a branch cache of {slots} slots needs "
+                         f"{smem_bytes(slots)} bytes of shared memory, "
+                         f"over {SMEM_LIMIT}")
     lib = _get_lib()
     data, dlen, lanes, rows, tables = (t.contiguous() for t in (
         data, dlen, lanes, rows, tables))
@@ -316,17 +385,20 @@ def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
     arena = torch.empty((S, ARENA_SIZE), dtype=torch.int32, device=dev)
     ring = torch.empty((S, ring_comps * ring_width, SUMMARY),
                        dtype=torch.int32, device=dev)
+    counts = torch.zeros((S, 2), dtype=torch.int32, device=dev)
     rc = lib.vpx_decoder_launch(
         data.data_ptr(), data.shape[1], dlen.data_ptr(), lanes.data_ptr(), S,
         rows.data_ptr(), tables.data_ptr(), luts.data_ptr(),
         None if template is None else template.data_ptr(),
         arena.data_ptr(), ARENA_SIZE, ring.data_ptr(), ring_comps * ring_width,
-        ring_width, coef.data_ptr(), err.data_ptr(), CODERS[coder],
+        ring_width, coef.data_ptr(), err.data_ptr(), slots,
+        counts.data_ptr(), CODERS[coder],
         torch.cuda.current_stream(dev).cuda_stream)
     if coder == "ans":
         decode_lanes.ans_launches += 1
     else:
         decode_lanes.launches += 1
+    decode_lanes.cache_counts = counts
     if rc:
         raise RuntimeError("vpx_decoder launch failed: "
                            + lib.vpx_decoder_error_string(rc).decode())
@@ -335,6 +407,7 @@ def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
 
 decode_lanes.launches = 0
 decode_lanes.ans_launches = 0
+decode_lanes.cache_counts = None
 
 
 # ---------------------------------------------------------------------------

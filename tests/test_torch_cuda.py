@@ -116,6 +116,40 @@ def test_branch_probs_kernel_matches_plain(cuda, rule, start):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["vpx", "adv"])
+def test_branch_update_every_state(cuda, rule):
+    """Each of the 65,536 (fc, tc) count pairs as a template branch, met
+    twice in lane b with bit b first: the second probability is the
+    update's, and it equals model/branch.py's division on every (fc, tc,
+    bit), so the kernels' reciprocal division (csrc/vpx_branch.cuh) is
+    exact on the card."""
+    from lepton_tpu_torch.model.branch import (adv_update_branch,
+                                               update_branch)
+    n = 1 << 16
+    state = np.arange(n)
+    tpl = np.full(ARENA_SIZE, 1 | 1 << 8 | 128 << 16, np.int32)
+    tpl[:n] = (state & 0xFF) | (state >> 8) << 8 | 128 << 16
+    idx = np.repeat(state, 2)[None].repeat(2, 0).astype(np.int32)
+    bit = np.zeros_like(idx, dtype=np.uint8)
+    bit[1, 0::2] = 1
+    nsyms = torch.full((2,), 2 * n, dtype=torch.int32, device=cuda)
+    probs, _ = bp.branch_probs(
+        torch.as_tensor(idx, device=cuda), torch.as_tensor(bit, device=cuda),
+        torch.as_tensor(tpl, device=cuda), rule,
+        nsyms if rule == "adv" else None)
+    probs = probs.cpu().numpy()
+    assert (probs[:, 0::2] == 128).all()
+    for b in (0, 1):
+        if rule == "adv":
+            want = [adv_update_branch(s & 0xFF, s >> 8, bool(b))[2]
+                    for s in range(n)]
+        else:
+            want = [update_branch(s & 0xFF, s >> 8, 128, bool(b))[2] & 0xFF
+                    for s in range(n)]
+        assert np.array_equal(probs[b, 1::2], np.asarray(want))
+
+
+@pytest.mark.cuda
 def test_branch_probs_kernel_hot_branch(cuda):
     """64 lanes that all share one hot branch, 300,000 occurrences each:
     64 runs of 300,000 steps, the kernel's longest."""
@@ -313,6 +347,75 @@ def test_ans_reader_matches_plain(cuda, start):
     coef_p, err_p = vpx_decoder.decode_lanes_plain(**inputs, template=tpl)
     assert torch.equal(coef, coef_p) and torch.equal(err, err_p)
     assert not err.any()
+
+
+def _reader_inputs(coder, packed, device, seed=7):
+    """Two requests of different geometry (3 lanes) of container v1 (VPX
+    reader) or v3 (rANS reader), as decode_lanes' inputs on `device`."""
+    version = 3 if coder == "ans" else 1
+    pairs = [chip_smoke.small_lep(seed, 96, 64, 90, 2, packed,
+                                  version=version),
+             chip_smoke.small_lep(seed + 1, 48, 32, 60, 1, packed,
+                                  version=version)]
+    plan = vpx_decoder.plan_decode([api._decode_request(lep, i)[0]
+                                    for i, (_, lep) in enumerate(pairs)],
+                                   coder)
+    return plan.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["identity", "template"])
+@pytest.mark.parametrize("coder", ["vpx", "ans"])
+def test_decoder_tiny_cache_matches_plain(cuda, coder, start, monkeypatch):
+    """With the full branch cache no read falls through; with one of 8
+    slots most branches live in the arena in device memory.  Both give the
+    plain version's planes and err flags."""
+    packed = tpl = None
+    if start == "template":
+        packed, tpl = _template()
+        tpl = tpl.to(cuda)
+    inputs = _reader_inputs(coder, packed, cuda)
+    want = vpx_decoder.decode_lanes_plain(**inputs, template=tpl)
+    got = vpx_decoder.decode_lanes(**inputs, template=tpl)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    full = vpx_decoder.decode_lanes.cache_counts.cpu()
+    assert full[:, 0].min() > 8 and not full[:, 1].any()
+    monkeypatch.setattr(vpx_decoder, "cache_slots", lambda: 8)
+    got = vpx_decoder.decode_lanes(**inputs, template=tpl)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    tiny = vpx_decoder.decode_lanes.cache_counts.cpu()
+    assert (tiny[:, 0] <= 8).all() and (tiny[:, 1] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coder", ["vpx", "ans"])
+def test_decoder_err_flag_matches_plain(cuda, coder, monkeypatch):
+    """Random bytes in place of the streams: lanes whose 7x7 count passes
+    49 set their flag, and planes and flags equal the plain version's, with
+    the full branch cache and with one of 8 slots."""
+    inputs = _reader_inputs(coder, None, cuda, seed=11)
+    data = inputs["data"]
+    noise = np.random.default_rng(5).integers(
+        0, 256, tuple(data.shape) + (data.element_size(),), dtype=np.uint8)
+    inputs["data"] = torch.as_tensor(noise, device=cuda).view(
+        data.dtype).reshape(data.shape)
+    want = vpx_decoder.decode_lanes_plain(**inputs)
+    assert want[1].any()
+    for slots in (vpx_decoder.cache_slots(), 8):
+        monkeypatch.setattr(vpx_decoder, "cache_slots", lambda: slots)
+        got = vpx_decoder.decode_lanes(**inputs)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_decoder_refuses_oversized_cache(cuda, monkeypatch):
+    """A cache over the card's shared memory raises before any launch."""
+    inputs = _reader_inputs("vpx", None, cuda)
+    monkeypatch.setattr(vpx_decoder, "cache_slots", lambda: 1 << 15)
+    before = vpx_decoder.decode_lanes.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        vpx_decoder.decode_lanes(**inputs)
+    assert vpx_decoder.decode_lanes.launches == before
 
 
 @pytest.mark.cuda
