@@ -66,11 +66,24 @@ Phases (any failure exits non-zero, before the result line):
  10. hold the rANS reader against its plain version: small v3 files with
      1, 2 and 4 segments, one from the template, and phase 9's 64 lanes
      cut to one row a component of a dozen blocks;
- 11. one batch_decompress_device call with v1, v2 and v3 requests: one
-     launch of each reader, and every original JPEG back;
+ 11. one batch_decompress_device call with v1, v2 and v3 requests, a
+     mode-X (progressive) and a CMYK one among them: one launch of each
+     reader, and every original JPEG back;
  12. the roofline probe: each chain's checksum equal to its plain loop,
      then ns a step of each chain with the arena in device memory and in
-     shared memory.
+     shared memory;
+ 13. mode X and 4 colours (fails if the native JPEG library did not
+     build): phase 4's four photos made again as progressive JPEGs, encoded
+     with allow_progressive as v1 and as v3 (one launch of each coder
+     kernel, every file mode X, image 0 alone equal) and decoded back (one
+     reader launch, every original byte for byte, the device planes those
+     of the progressive parse), with the stage times printed beside phase
+     4's, 7's and 9's for the same pictures; small files (a multi-scan
+     baseline, a progressive one cut in its scan data, a q100 grayscale
+     progressive one, a CMYK one) give equal v1 and v3 bytes on cuda and
+     cpu and decode to the original (or, on a file that hits the
+     reference's q100 quirk, to the host re-emit of its parse); one
+     4032x3024 CMYK photo encodes and decodes as v1, one launch each.
 It prints stage times, sizes, rates and peak memory, then the card's name
 and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -103,6 +116,8 @@ ANS_CUT_ROWS, ANS_CUT_WIDTH = 1, 12   # phase-10 cut of the v3 lanes
 ANS_WALK_OPS_PER_SYMBOL = 20   # integer ops of one rANS-coded symbol
 PROBE_CHECK_ITERS = 2000       # steps of the probe's checksum holds
 PROBE_STEPS = 1 << 20          # steps of each timed probe chain
+QUIRK_SEED = 146               # gray_q100(QUIRK_SEED, 160, 96) hits the q100
+                               # quirk with PIL's libjpeg-turbo 3.1
 
 
 def fail(msg: str) -> None:
@@ -114,9 +129,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_photo(seed: int, w: int, h: int, quality: int = 90) -> bytes:
+def make_photo(seed: int, w: int, h: int, quality: int = 90,
+               progressive: bool = False, mode: str = "RGB") -> bytes:
     """A phone-photo-like JPEG (q90, 4:2:0): smooth gradients and shading,
-    hard-edged patches, mild sensor noise, all from a numpy seed."""
+    hard-edged patches, mild sensor noise, all from a numpy seed; baseline
+    or progressive, RGB or (the same picture's three channels and their
+    mean as K) CMYK."""
     from PIL import Image
     rng = np.random.default_rng(seed)
     s = w / 4032.0
@@ -135,10 +153,37 @@ def make_photo(seed: int, w: int, h: int, quality: int = 90) -> bytes:
         img[y0:y0 + hh, x0:x0 + ww] += rng.uniform(-45, 45, 3).astype(
             np.float32)
     img += rng.normal(0, 5.0, (h, w, 3)).astype(np.float32)
+    pixels = np.clip(img, 0, 255).astype(np.uint8)
+    if mode == "CMYK":
+        pixels = np.concatenate([pixels, pixels.mean(-1, keepdims=True,
+                                                     dtype=np.float32)
+                                 .astype(np.uint8)], -1)
     buf = io.BytesIO()
-    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8), "RGB").save(
-        buf, "JPEG", quality=quality, subsampling=2)
+    Image.fromarray(pixels, mode).save(buf, "JPEG", quality=quality,
+                                       subsampling=2, progressive=progressive)
     return buf.getvalue()
+
+
+def multi_scan_jpeg(jpeg: bytes) -> bytes:
+    """A baseline JPEG with one scan a component, made from a baseline file
+    (PIL cannot write one): its single SOS becomes one SOS a component (Ns
+    1, Ss 0, Se 63, AhAl 0), and the port's progressive re-emit, which
+    writes sequential scans too, regenerates the scans from its planes."""
+    from lepton_tpu_torch.jpeg.decoder import decode_scans
+    from lepton_tpu_torch.jpeg.imageinfo import image_info_from_header
+    from lepton_tpu_torch.jpeg.parser import parse_jpeg
+    from lepton_tpu_torch.jpeg.recode_progressive import (
+        recode_progressive_jpeg)
+    parsed = parse_jpeg(jpeg)
+    hdr = parsed.hdrdata
+    dec = decode_scans(parsed, image_info_from_header(hdr))
+    at = hdr.rfind(b"\xff\xda")
+    comps = [hdr[at + 5 + 2 * k:at + 7 + 2 * k] for k in range(hdr[at + 4])]
+    new = hdr[:at] + b"".join(b"\xff\xda\x00\x08\x01" + c + b"\x00\x3f\x00"
+                              for c in comps)
+    return recode_progressive_jpeg(new, dec.planes,
+                                   image_info_from_header(new), dec.padbit,
+                                   [], False, [], b"\xff\xd9", 1 << 30)
 
 
 def adversarial_segments():
@@ -572,6 +617,270 @@ def check_cache(counts, replay, what: str) -> str:
             f"fall-through reads {int(got[:, 1].sum())} in all, distinct "
             f"branches {replay[:, 2].min()}-{replay[:, 2].max()} a lane "
             f"(equal to the replay from the encode lanes)")
+
+
+def cut_in_scan(jpeg: bytes) -> bytes:
+    """The JPEG cut in the middle of the entropy-coded data of its longest
+    scan, so that it ends early inside scan data and not inside a header."""
+    best = (0, 0)
+    at = jpeg.find(b"\xff\xda")
+    while at >= 0:
+        start = end = at + 2 + int.from_bytes(jpeg[at + 2:at + 4], "big")
+        while True:
+            end = jpeg.find(b"\xff", end)
+            if end < 0 or end + 1 >= len(jpeg):
+                end = len(jpeg)
+                break
+            if jpeg[end + 1] != 0 and not 0xD0 <= jpeg[end + 1] <= 0xD7:
+                break
+            end += 2
+        best = max(best, (end - start, start))
+        at = jpeg.find(b"\xff\xda", end)
+    n, start = best
+    return jpeg[:start + n // 2]
+
+
+def gray_q100(seed: int, w: int, h: int) -> bytes:
+    """A grayscale noise JPEG, q100 progressive: the kind of file on which
+    the reference encoder's q100 quirk shows (tests/test_torch_progressive
+    .py holds the port to the JAX package on one that hits it)."""
+    from PIL import Image
+    arr = np.random.default_rng(seed).integers(0, 256, (h, w))
+    buf = io.BytesIO()
+    Image.fromarray(arr.astype(np.uint8), "L").save(
+        buf, "JPEG", quality=100, progressive=True)
+    return buf.getvalue()
+
+
+def reemit_of_parse(jpeg: bytes) -> bytes:
+    """The port's host re-emit of the planes of a mode-X JPEG's own parse:
+    what a decode of its .lep gives back.  The JPEG itself, except on a
+    file that hits the reference encoder's q100 quirk, where the JAX
+    package gives the same other bytes."""
+    from lepton_tpu_torch import api
+    from lepton_tpu_torch.jpeg.imageinfo import image_info_from_header
+    from lepton_tpu_torch.jpeg.recode_progressive import (
+        recode_progressive_jpeg)
+    parsed, _, dec = api._parse(jpeg, allow_progressive=True)
+    return recode_progressive_jpeg(
+        parsed.hdrdata, dec.planes, image_info_from_header(parsed.hdrdata),
+        dec.padbit, parsed.rst_cnt, False, parsed.rst_err,
+        parsed.garbage or b"\xff\xd9", parsed.jpgfilesize,
+        truncated=dec.early_eof)
+
+
+def launch_counts() -> dict:
+    """The launch counters of every kernel on an encode or decode path."""
+    from lepton_tpu_torch.kernels import vpx_decoder
+    counts = {fn.__name__: fn.launches for fn in coder_kernels()}
+    counts["vpx_reader"] = vpx_decoder.decode_lanes.launches
+    counts["ans_reader"] = vpx_decoder.decode_lanes.ans_launches
+    return counts
+
+
+def reset_launches() -> None:
+    from lepton_tpu_torch.kernels import vpx_decoder
+    for fn in coder_kernels():
+        fn.launches = 0
+    vpx_decoder.decode_lanes.launches = 0
+    vpx_decoder.decode_lanes.ans_launches = 0
+
+
+def expect_launches(what: str, **want) -> dict:
+    """The counts since reset_launches(); fails unless each kernel named
+    in `want` ran that many times and every other kernel never."""
+    counts = launch_counts()
+    if counts != {k: want.get(k, 0) for k in counts}:
+        fail(f"{what}: launches {counts}, expected {want}")
+    return counts
+
+
+def phase_mode_x(dev, base: dict) -> dict:
+    """Phase 13: progressive photos through the main path as v1 and v3,
+    small mode-X and CMYK files on cuda against cpu, and a 12 MP CMYK
+    photo.  `base` holds phase 4/7 (v1) and phase 9 (v3) numbers of the
+    same pictures as baseline files.  Returns {version: (launches on the
+    encode and decode main paths, their stats merged)}."""
+    import torch
+    from lepton_tpu_torch import _native, api
+    from lepton_tpu_torch.kernels import (ans_coder, batch_encode,
+                                          vpx_coder, vpx_decoder)
+    if not _native.available():
+        fail("the native JPEG library did not build: the progressive parse "
+             "and re-emit would run in Python")
+    t = time.perf_counter()
+    blobs = [make_photo(SEED + k, 4032, 3024, progressive=True)
+             for k in range(4)]
+    parses = [api._parse(b, allow_progressive=True)[1:] for b in blobs]
+    descs = [api._describe(info, dec, api._plan(dec, 16)[0])
+             for info, dec in parses]
+    nscans = [b.count(b"\xff\xda") for b in blobs]
+    log(f"[13] made the 4 photos of phase 4 as progressive JPEGs "
+        f"({sum(map(len, blobs))} bytes, {nscans} scans) and parsed them "
+        f"in {time.perf_counter() - t:.1f} s")
+    out = {}
+    for version, walk, reader in ((1, "vpx_walk", "vpx_reader"),
+                                  (3, "ans_walk", "ans_reader")):
+        (bprof, bdprof, bwall, bdwall, bpeak, bdpeak, bin_, bout,
+         (bagain_ms, bagain), bdagain_ms) = base[version]
+        coder_key = "coder_ms" if version == 1 else "ans_coder_ms"
+        reader_key = f"{'vpx' if version == 1 else 'ans'}_decoder_ms"
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        prof = {}
+        leps = api.batch_compress_device(blobs, num_segments=16, stats=prof,
+                                         version=version,
+                                         allow_progressive=True)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev)
+        enc = expect_launches(f"v{version} mode-X encode", run_heads=1,
+                              walk_runs=1, **{walk: 1})
+        if prof["lanes"] != 64:
+            fail(f"expected 64 mode-X lanes, got {prof['lanes']}")
+        for b, lep in zip(blobs, leps):
+            if lep[:4] != b"\xcf\x84" + bytes([version]) + b"X" \
+                    or int.from_bytes(lep[-4:], "little") != len(lep) \
+                    or not len(lep) < len(b):
+                fail(f"malformed, non-shrinking or not mode-X v{version} "
+                     ".lep")
+        if api.compress_device(blobs[0], version=version,
+                               allow_progressive=True) != leps[0]:
+            fail(f"v{version} mode X image 0: batch output differs from "
+                 "compress_device alone")
+        # the coder again on the same lanes, as phases 4 and 9 time it
+        idx, bit, _ = batch_encode.assemble_lanes(descs, dev,
+                                                  framed=version != 3)
+        again = {}
+        if version == 3:
+            nsyms = (idx != vpx_coder.PAD).sum(1).to(torch.int32)
+            _, again_ms = timed_cuda(ans_coder.encode_streams_ans, idx, bit,
+                                     nsyms, None, again)
+        else:
+            _, again_ms = timed_cuda(vpx_coder.encode_streams, idx, bit,
+                                     None, again)
+        del idx, bit
+        torch.cuda.empty_cache()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        dprof = {}
+        outs = api.batch_decompress_device(leps, stats=dprof)
+        torch.cuda.synchronize(dev)
+        dwall = time.perf_counter() - t
+        dpeak = torch.cuda.max_memory_allocated(dev)
+        dec = expect_launches(f"v{version} mode-X decode", **{reader: 1})
+        if outs != blobs:
+            fail(f"v{version} mode X: batch_decompress_device did not give "
+                 "back the original progressive JPEGs")
+        plan = vpx_decoder.plan_decode(
+            [api._decode_request(lep, i)[0] for i, lep in enumerate(leps)],
+            "ans" if version == 3 else "vpx")
+        inputs = plan.to(dev)
+        (coef, derr), dagain_ms = timed_cuda(
+            lambda: vpx_decoder.decode_lanes(**inputs))
+        for (planes, _), (_, parsed) in zip(
+                vpx_decoder.split_planes(plan, coef, derr), parses):
+            if not all(torch.equal(a, torch.as_tensor(b, device=dev))
+                       for a, b in zip(planes, parsed.planes)):
+                fail(f"v{version} mode X: device planes differ from the "
+                     "progressive parse's")
+        del coef, planes, inputs
+        torch.cuda.empty_cache()
+        bytes_out = sum(map(len, leps))
+        log(f"[13] v{version} mode X: batch_compress_device on the 4 "
+            f"progressive photos, {prof['lanes']} lanes, launches "
+            f"{ {k: v for k, v in enc.items() if v} }, every file mode X, "
+            f"image 0 alone gives equal bytes; batch_decompress_device: "
+            f"{dec[reader]} {reader} launch, every JPEG back byte for byte, "
+            f"device planes equal the progressive parse's")
+        log(f"[13] v{version} encode s, mode X (baseline of the same "
+            f"pictures): parse+huffman {prof['parse_s']:.3f} "
+            f"({bprof['parse_s']:.3f}), symbolize {prof['symbolize_s']:.3f} "
+            f"({bprof['symbolize_s']:.3f}), coder {prof[coder_key]:.2f} ms "
+            f"({bprof[coder_key]:.2f}), finalize+mux "
+            f"{prof['finalize_s'] + prof['mux_s']:.3f} "
+            f"({bprof['finalize_s'] + bprof['mux_s']:.3f}), wall {wall:.3f} "
+            f"({bwall:.3f}); peak max_memory_allocated "
+            f"{peak / 2**30:.2f} GiB ({bpeak / 2**30:.2f}); symbols "
+            f"{prof['symbols']} ({bprof['symbols']})")
+        log(f"[13] v{version} decode s, mode X (baseline): read+demux "
+            f"{dprof['read_s']:.3f} ({bdprof['read_s']:.3f}), plan+upload "
+            f"{dprof['plan_s']:.3f} ({bdprof['plan_s']:.3f}), reader "
+            f"{dprof[reader_key]:.2f} ms ({bdprof[reader_key]:.2f}), d2h "
+            f"{dprof['d2h_s']:.3f} ({bdprof['d2h_s']:.3f}), recode "
+            f"{dprof['recode_s']:.3f} ({bdprof['recode_s']:.3f}), wall "
+            f"{dwall:.3f} ({bdwall:.3f}); peak max_memory_allocated "
+            f"{dpeak / 2**30:.2f} GiB ({bdpeak / 2**30:.2f})")
+        log(f"[13] v{version} coder again, mode X: all 64 lanes "
+            f"{again_ms:.2f} ms {stage_split(again)}, longest lane "
+            f"{prof['max_lane_symbols']} symbols; baseline: {bagain_ms:.2f} "
+            f"ms {stage_split(bagain)}, longest lane "
+            f"{bprof['max_lane_symbols']} symbols")
+        log(f"[13] v{version} reader again, mode X: all 64 lanes "
+            f"{dagain_ms:.2f} ms, longest lane {dprof['max_lane_blocks']} "
+            f"blocks; baseline: {bdagain_ms:.2f} ms, "
+            f"{bdprof['max_lane_blocks']} blocks")
+        log(f"[13] v{version} JPEG bytes in {sum(map(len, blobs))} "
+            f"({bin_}), .lep bytes out {bytes_out} ({bout}), ratio "
+            f"{bytes_out / sum(map(len, blobs)):.4f} ({bout / bin_:.4f})")
+        out[version] = ({**enc, **{k: v for k, v in dec.items() if v}},
+                        {**prof, **dprof})
+
+    # small files on cuda against cpu
+    small = {
+        "multi-scan baseline 64x48": multi_scan_jpeg(
+            make_photo(SEED + 50, 64, 48)),
+        "progressive 64x48 cut in its scan data": cut_in_scan(
+            make_photo(SEED + 51, 64, 48, progressive=True)),
+        "progressive q100 grayscale 160x96": gray_q100(QUIRK_SEED, 160, 96),
+        "CMYK 64x48": make_photo(SEED + 53, 64, 48, mode="CMYK"),
+    }
+    for what, data in small.items():
+        want = data if what.startswith("CMYK") else reemit_of_parse(data)
+        for version in (1, 3):
+            kw = dict(num_segments=4, version=version,
+                      allow_progressive=True, allow_four_colors=True)
+            lep = api.compress_device(data, **kw)
+            if lep != api.compress_device(data, device="cpu", **kw):
+                fail(f"{what} v{version}: cuda and cpu .lep bytes differ")
+            if api.decompress_device(lep) != want:
+                fail(f"{what} v{version}: the decode differs from the "
+                     "host re-emit of its parse")
+        log(f"[13] {what} ({len(data)} bytes, mode {chr(lep[3])}"
+            f"{', early EOF' if 'cut' in what else ''}): v1 and v3 bytes "
+            f"equal on cuda and cpu; decoded to "
+            + ("the original" if want == data
+               else "the host re-emit of its parse (the q100 quirk)"))
+
+    # one 12 MP CMYK photo, v1
+    cmyk = make_photo(SEED + 60, 4032, 3024, mode="CMYK")
+    reset_launches()
+    t = time.perf_counter()
+    cprof = {}
+    lep = api.batch_compress_device([cmyk], stats=cprof,
+                                    allow_four_colors=True)[0]
+    torch.cuda.synchronize(dev)
+    cwall = time.perf_counter() - t
+    expect_launches("CMYK encode", run_heads=1, walk_runs=1, vpx_walk=1)
+    reset_launches()
+    t = time.perf_counter()
+    cdprof = {}
+    back = api.batch_decompress_device([lep], stats=cdprof)[0]
+    torch.cuda.synchronize(dev)
+    cdwall = time.perf_counter() - t
+    expect_launches("CMYK decode", vpx_reader=1)
+    if back != cmyk:
+        fail("the 12 MP CMYK photo did not come back byte for byte")
+    log(f"[13] CMYK 4032x3024 q90 ({len(cmyk)} bytes, .lep {len(lep)}, "
+        f"ratio {len(lep) / len(cmyk):.4f}), v1, {cprof['lanes']} lanes: "
+        f"one launch of each coder kernel and of the VPX reader, the "
+        f"original back; encode wall {cwall:.3f} s (coder "
+        f"{cprof['coder_ms']:.2f} ms), decode wall {cdwall:.3f} s (reader "
+        f"{cdprof['vpx_decoder_ms']:.2f} ms, recode "
+        f"{cdprof['recode_s']:.3f} s)")
+    return out
 
 
 def main() -> None:
@@ -1081,17 +1390,26 @@ def main() -> None:
         f"({int(cut_flags.count_nonzero())} lanes flagged past the cut); "
         f"kernel {rcut_k_ms:.2f} ms, plain {rcut_p_ms:.0f} ms")
 
-    # ---- phase 11: one call with v1, v2 and v3 requests
+    # ---- phase 11: one call with v1, v2 and v3 requests, mode Z and X
     small2 = api.compress_device(small, num_segments=4, version=2)
+    small_x = make_photo(SEED + 12, 160, 120, progressive=True)
+    small_c = make_photo(SEED + 13, 160, 120, mode="CMYK")
+    lep_x = api.compress_device(small_x, num_segments=4,
+                                allow_progressive=True)
+    lep_c = api.compress_device(small_c, num_segments=4, version=3,
+                                allow_four_colors=True)
     decode_lanes.launches = decode_lanes.ans_launches = 0
-    mixed = [leps[0], small2, leps3[1]]
-    if api.batch_decompress_device(mixed) != [blobs[0], small, blobs[1]]:
-        fail("the mixed v1/v2/v3 call did not give back every original")
+    mixed = [leps[0], small2, leps3[1], lep_x, lep_c]
+    if api.batch_decompress_device(mixed) \
+            != [blobs[0], small, blobs[1], small_x, small_c]:
+        fail("the mixed v1/v2/v3, mode Z/X, CMYK call did not give back "
+             "every original")
     if (decode_lanes.launches, decode_lanes.ans_launches) != (1, 1):
         fail("the mixed call did not launch each reader once")
     log("[11] one batch_decompress_device call with a v1, a v2 and a v3 "
-        "request: one VPX reader launch, one rANS reader launch, every "
-        "JPEG back byte for byte")
+        "request, a v1 mode-X (progressive 160x120) and a v3 CMYK request: "
+        "one VPX reader launch, one rANS reader launch, every JPEG back "
+        "byte for byte")
 
     # ---- phase 12: the roofline probe
     chains = [("rmw", 1), ("rmw", 2), ("rmw", 4), ("rmw", 8), ("alu", 1),
@@ -1248,6 +1566,26 @@ def main() -> None:
         "ns_a_step": {f"{kind} K={K} {'shared' if sh else 'device'}": v
                       for (kind, K, sh), v in probe_ns.items()},
     })
+
+    # ---- phase 13: mode X and 4 colours on the card
+    base = {1: (prof, dprof, wall, dwall, peak, dpeak, bytes_in, bytes_out,
+                (again_ms, again), dagain_ms),
+            3: (prof3, dprof3, wall3, dwall3, peak3, dpeak3, bytes_in,
+                bytes_out3, (aagain_ms, again3), ragain_ms)}
+    mode_x = phase_mode_x(dev, base)
+    rows = {row["name"]: row for row in kernels}
+    for name, version, counter, ms_key in (
+            ("vpx_coder", 1, "vpx_walk", "coder_ms"),
+            ("run_heads", 1, "run_heads", "heads_ms"),
+            ("walk_runs", 1, "walk_runs", "runs_ms"),
+            ("ans_coder", 3, "ans_walk", "ans_coder_ms"),
+            ("vpx_decoder", 1, "vpx_reader", "vpx_decoder_ms"),
+            ("ans_reader", 3, "ans_reader", "ans_decoder_ms")):
+        launched, stats = mode_x[version]
+        rows[name]["launches_mode_x"] = launched[counter]
+        rows[name]["ms_mode_x"] = stats[ms_key]
+        rows[name]["mode_x_path"] = (f"phase 13, v{version}: 4 progressive "
+                                     "4032x3024 q90 photos, 64 lanes")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

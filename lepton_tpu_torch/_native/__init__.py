@@ -2,10 +2,12 @@
 
 The port's own copy of the parts of lepton_tpu/_native/__init__.py that the
 encode and decode paths need: build_hscan, build_huff_tables,
-native_decode_baseline_scan (Huffman scan decode) and native_recode_rows
-(Huffman re-emit, :300-332).  The library is built with gcc at first use
-into the build/ directory beside the package (git ignores it).  It keeps a
-12 MP scan decode far below the pure-Python loop's time.
+native_decode_baseline_scan (Huffman scan decode), native_recode_rows
+(Huffman re-emit, :300-332), and for progressive and multi-scan JPEGs
+native_decode_progressive_scan and native_recode_any_scan (:362-430).  The
+library is built with gcc at first use into the build/ directory beside the
+package (git ignores it).  It keeps a 12 MP scan decode far below the
+pure-Python loop's time.
 """
 from __future__ import annotations
 
@@ -74,6 +76,12 @@ def get_lib():
             lib.lepton_recode_rows.argtypes = [
                 p, p, p, i, i, i, i, p, i, p, i, i, p, i64, i64, p]
             lib.lepton_recode_rows.restype = i64
+            lib.lepton_decode_progressive_scan.argtypes = [
+                p, i64, p, p, p, p, p, p, p, i, p, p, p, p, p]
+            lib.lepton_decode_progressive_scan.restype = i
+            lib.lepton_recode_any_scan.argtypes = [
+                p, p, i, p, p, i, p, i64, i64, p, p, p]
+            lib.lepton_recode_any_scan.restype = i64
             _lib = lib
     return _lib
 
@@ -210,3 +218,77 @@ def native_recode_rows(info, planes, start_row: int, end_row: int,
         raise RuntimeError("native recode failed")
     return (int(newpos), int(overhang_out[0]), int(overhang_out[1]),
             lastdc_c.tolist())
+
+
+class _HScanPrg(ctypes.Structure):
+    _fields_ = [("cs_from", ctypes.c_int), ("cs_to", ctypes.c_int),
+                ("cs_sah", ctypes.c_int), ("cs_sal", ctypes.c_int)]
+
+
+def _prg_of(info) -> "_HScanPrg":
+    sc = info.scan
+    return _HScanPrg(sc.cs_from, sc.cs_to, sc.cs_sah, sc.cs_sal)
+
+
+def native_decode_progressive_scan(info, huffdata: bytes, bitpos: int,
+                                   offsets, planes, padbit: int, state,
+                                   max_dpos, tables=None):
+    """One progressive scan in C.  state: int32[5] = [mcu, dc0..3] (io).
+    Returns (status, new_bitpos, handoff_records, padbit)."""
+    lib = get_lib()
+    sc = build_hscan(info)
+    prg = _prg_of(info)
+    if tables is None:
+        tables = build_huff_tables(info)
+    n = len(planes)
+    plane_ptrs = (ctypes.POINTER(ctypes.c_int16) * n)(*[
+        p.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for p in planes])
+    hpos = np.ascontiguousarray([o[0] for o in offsets], dtype=np.uint32)
+    fpos = np.ascontiguousarray([o[1] for o in offsets], dtype=np.uint32)
+    max_handoffs = info.cmpnfo[0].bcv + 16
+    handoffs = np.zeros((max_handoffs, 8), dtype=np.int32)
+    nhandoffs = ctypes.c_int32(0)
+    padbit_c = ctypes.c_int32(padbit)
+    bitpos_c = ctypes.c_int64(bitpos)
+    md = np.asarray(max_dpos, dtype=np.int32)
+    hbuf = np.frombuffer(huffdata, dtype=np.uint8)
+    status = lib.lepton_decode_progressive_scan(
+        hbuf.ctypes.data_as(ctypes.c_void_p), ctypes.c_int64(len(huffdata)),
+        ctypes.byref(bitpos_c), ctypes.byref(sc), ctypes.byref(prg), tables,
+        plane_ptrs,
+        hpos.ctypes.data_as(ctypes.c_void_p),
+        fpos.ctypes.data_as(ctypes.c_void_p), len(offsets),
+        handoffs.ctypes.data_as(ctypes.c_void_p), ctypes.byref(nhandoffs),
+        ctypes.byref(padbit_c), md.ctypes.data_as(ctypes.c_void_p),
+        state.ctypes.data_as(ctypes.c_void_p))
+    for i in range(4):
+        max_dpos[i] = int(md[i])
+    return status, bitpos_c.value, handoffs[:nhandoffs.value], padbit_c.value
+
+
+def native_recode_any_scan(info, planes, jpegtype: int, padbit: int,
+                           out_base: int, tables=None, sc=None):
+    """Re-emit one scan; returns (scan_bytes, rstp_positions)."""
+    lib = get_lib()
+    if sc is None:
+        sc = build_hscan(info)
+    prg = _prg_of(info)
+    if tables is None:
+        tables = build_huff_tables(info)
+    n = len(planes)
+    plane_ptrs = (ctypes.POINTER(ctypes.c_int16) * n)(*[
+        p.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for p in planes])
+    cap = sum(p.nbytes for p in planes) + (1 << 20)
+    out = np.empty(cap, dtype=np.uint8)
+    rstp_cap = ctypes.c_int32(1 << 20)
+    rstp = np.zeros(1 << 20, dtype=np.uint32)
+    n_rstp = ctypes.c_int32(0)
+    nbytes = lib.lepton_recode_any_scan(
+        ctypes.byref(sc), ctypes.byref(prg), jpegtype, tables, plane_ptrs,
+        padbit, out.ctypes.data_as(ctypes.c_void_p), ctypes.c_int64(cap),
+        ctypes.c_int64(out_base),
+        rstp.ctypes.data_as(ctypes.c_void_p), ctypes.byref(rstp_cap),
+        ctypes.byref(n_rstp))
+    if nbytes < 0:
+        raise RuntimeError("native progressive recode failed")
+    return out[:nbytes].tobytes(), rstp[:n_rstp.value].tolist()

@@ -1,22 +1,27 @@
 """Top-level API: JPEG bytes <-> .lep bytes on one CUDA card.
 
 Encode: port of lepton_tpu.api.compress_tpu / batch_compress_tpu
-(:1023-1228) for baseline JPEGs and containers v1, v2 (VPX lanes; the
-header zlib or brotli) and v3 (rANS lanes, brotli header).  Pipeline: host
-parse + Huffman decode to coefficient planes and handoffs, thread splits,
+(:1023-1228) for JPEGs of 1 to 4 components (4 with allow_four_colors),
+baseline single-scan (mode Z) or, with allow_progressive, progressive and
+multi-scan (mode X), into containers v1, v2 (VPX lanes; the header zlib or
+brotli) and v3 (rANS lanes, brotli header).  Pipeline: host parse + Huffman
+decode of every scan to coefficient planes and handoffs, thread splits,
 then phase A, symbolization and the VPX or ANS coder on the device
 (kernels/batch_encode.py), then the VPX stop-byte rule or the rANS word
 order, the mux and the .lep header on the host.  The output is
 byte-identical to the JAX package's.
 
 Decode: port of lepton_tpu.api.decompress_tpu / batch_decompress_tpu
-(:427-589) for mode-Z containers of versions 1 to 3.  Pipeline: host
-container read and demux, then for each coder (VPX lanes for v1 and v2,
-rANS lanes for v3) one launch of the token decoder for every segment of
-every request of that coder (kernels/vpx_decoder.py) and one copy of the
-planes to the host, then the Huffman re-emit (jpeg/recoder.py).  The
-output is the original JPEG, byte for byte.  A container the device path
-does not cover raises LeptonError; there is no host fallback.
+(:427-589) for mode-Z and mode-X containers of versions 1 to 3.  Pipeline:
+host container read and demux, then for each coder (VPX lanes for v1 and
+v2, rANS lanes for v3) one launch of the token decoder for every segment of
+every request of that coder, whatever its mode (kernels/vpx_decoder.py),
+and one copy of the planes to the host, then the Huffman re-emit: the
+baseline scan by segments (jpeg/recoder.py) for mode Z, every scan
+regenerated from the whole planes (jpeg/recode_progressive.py) for mode X.
+The output is the original JPEG, byte for byte.  A container the device
+path does not cover (mode Y) raises LeptonError; there is no host
+fallback.
 
 The entry points run on the card: device=None means "cuda", and without
 CUDA they raise.  Pass device="cpu" to run the plain PyTorch versions of
@@ -38,6 +43,7 @@ from .container.mux import MuxReader, mux_streams
 from .jpeg.decoder import ThreadHandoff, decode_scans
 from .jpeg.imageinfo import ImageInfo, UnsupportedJpeg, image_info_from_header
 from .jpeg.parser import parse_jpeg
+from .jpeg.recode_progressive import recode_progressive_jpeg
 from .jpeg.recoder import recode_baseline_jpeg
 from .kernels import batch_encode, vpx_decoder
 from .model.context import ColorTables
@@ -107,13 +113,18 @@ def _truncation_geometry(info: ImageInfo, hdr_or_dec) -> tuple:
     return max_coded_heights, component_sizes
 
 
-def _parse(jpeg_data: bytes):
-    """Host parse + Huffman decode: (parsed, info, dec)."""
+def _parse(jpeg_data: bytes, allow_progressive: bool = False,
+           allow_four_colors: bool = False):
+    """Host parse + Huffman decode: (parsed, info, dec).  Refuses a
+    4-component JPEG unless allow_four_colors, as compress_tpu (:1055-1058)
+    and the host compress do (batch_compress_tpu has no such check), and a
+    progressive or multi-scan one unless allow_progressive."""
     parsed = parse_jpeg(jpeg_data)
     info = image_info_from_header(parsed.hdrdata)
-    if info.cmpc > 3:
+    if info.cmpc > 3 and not allow_four_colors:
         raise UnsupportedJpeg("4 colors unsupported")
-    return parsed, info, decode_scans(parsed, info)
+    return parsed, info, decode_scans(parsed, info,
+                                      allow_progressive=allow_progressive)
 
 
 def _plan(dec, num_segments: int):
@@ -141,7 +152,7 @@ def _container(parsed, dec, splits, num_threads, streams,
     """The .lep bytes, header as in lepton_tpu.api (:1209-1228)."""
     hdr = LeptonHeader()
     hdr.version = version
-    hdr.mode = ord("Z")
+    hdr.mode = ord("Z") if dec.is_baseline else ord("X")
     hdr.num_threads = num_threads
     hdr.original_size = parsed.jpgfilesize
     hdr.hdrdata = parsed.hdrdata
@@ -158,14 +169,20 @@ def _container(parsed, dec, splits, num_threads, streams,
 
 
 def batch_compress_device(jpeg_blobs, num_segments: int = 16,
-                          device=None, stats=None, version: int = 1) -> list:
-    """Encode many baseline JPEGs on one card: every image's segments are
-    lanes of one coder kernel launch.  Returns the .lep bytes of each,
-    identical to compress_device on it alone and to the JAX package's
-    batch_compress_tpu.
+                          device=None, stats=None, version: int = 1,
+                          allow_progressive: bool = False,
+                          allow_four_colors: bool = False) -> list:
+    """Encode many JPEGs on one card: every image's segments are lanes of
+    one coder kernel launch.  Returns the .lep bytes of each, identical to
+    compress_device on it alone and to the JAX package's batch_compress_tpu.
 
     version: the container version, 1 (zlib header) or 2 (brotli header)
     with VPX lanes, or 3 (brotli header) with rANS lanes.
+    allow_progressive: take progressive and multi-scan JPEGs too, written as
+    mode-X containers (the reference's -allowprogressive); they code the
+    same token layer as baseline files.
+    allow_four_colors: take 4-component (CMYK) JPEGs, component 3 on the
+    chroma tables; without it they raise UnsupportedJpeg.
     stats: optional dict that receives the stage times and counts: parse_s
     (host parse + Huffman), symbolize_s, assemble_s, coder_ms or, for
     version 3, ans_coder_ms (CUDA events on the card), finalize_s, mux_s,
@@ -177,7 +194,8 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
     t = time.perf_counter()
     metas, descs = [], []
     for data in jpeg_blobs:
-        parsed, info, dec = _parse(data)
+        parsed, info, dec = _parse(data, allow_progressive,
+                                   allow_four_colors)
         splits, num_threads = _plan(dec, num_segments)
         descs.append(_describe(info, dec, splits))
         metas.append((parsed, dec, splits, num_threads))
@@ -194,11 +212,15 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
 
 
 def compress_device(jpeg_data: bytes, num_segments: int = 16,
-                    device=None, version: int = 1) -> bytes:
-    """Encode one baseline JPEG on the card: the batch pipeline with a
-    one-image batch, as compress_tpu is."""
-    return batch_compress_device([jpeg_data], num_segments, device,
-                                 version=version)[0]
+                    device=None, version: int = 1,
+                    allow_progressive: bool = False,
+                    allow_four_colors: bool = False) -> bytes:
+    """Encode one JPEG on the card: the batch pipeline with a one-image
+    batch, as compress_tpu is."""
+    return batch_compress_device(
+        [jpeg_data], num_segments, device, version=version,
+        allow_progressive=allow_progressive,
+        allow_four_colors=allow_four_colors)[0]
 
 
 def _decode_request(lep_data: bytes, i: int = 0):
@@ -207,8 +229,8 @@ def _decode_request(lep_data: bytes, i: int = 0):
     lepton_tpu.api._tpu_decode_request (:427-462) does, legacy files
     without an 'H' record included.  Returns (req, hdr, handoffs).  Raises
     LeptonError naming request i for what the device path does not cover:
-    mode Y, mode X, 4 colours, and version 2 and above when the brotli
-    libraries cannot be loaded."""
+    mode Y, and version 2 and above when the brotli libraries cannot be
+    loaded."""
     if len(lep_data) < 28 or lep_data[:2] not in (C.LEPTON_HEADER,
                                                   C.UJG_HEADER):
         raise LeptonError(f"request {i}: not a .lep container")
@@ -216,18 +238,13 @@ def _decode_request(lep_data: bytes, i: int = 0):
     if mode == ord("Y"):
         raise LeptonError(f"request {i}: mode-Y container (host decoder "
                           "only)")
-    if mode == ord("X"):
-        raise LeptonError(f"request {i}: mode-X (progressive) container is "
-                          "not ported")
     try:
         hdr, mux_region = read_container(lep_data)
     except ContainerError as e:
         raise LeptonError(f"request {i}: {e}") from e
-    if hdr.mode != ord("Z"):
+    if hdr.mode not in (ord("Z"), ord("X")):
         raise LeptonError(f"request {i}: unknown mode {hdr.mode}")
     info = image_info_from_header(hdr.hdrdata, allow_34=True)
-    if info.cmpc > 3:
-        raise LeptonError(f"request {i}: 4 colours are not ported")
     max_heights, comp_sizes = _truncation_geometry(info, hdr)
     handoffs = hdr.handoffs
     if not handoffs:
@@ -259,9 +276,17 @@ def _decode_request(lep_data: bytes, i: int = 0):
 
 
 def _reemit(hdr, handoffs, planes) -> bytes:
-    """Host re-emit of the baseline Huffman scan from decoded planes
-    (lepton_tpu.api._tpu_decode_reemit, :465-478)."""
+    """Host re-emit of the Huffman scans from decoded planes
+    (lepton_tpu.api._tpu_decode_reemit, :465-478): mode X regenerates every
+    scan from the whole planes and needs no handoffs; mode Z re-emits the
+    one baseline scan segment by segment."""
     info = image_info_from_header(hdr.hdrdata, allow_34=True)
+    if hdr.mode == ord("X"):
+        return recode_progressive_jpeg(
+            hdr.hdrdata, planes, info, hdr.padbit, hdr.rst_cnt,
+            hdr.rst_cnt_set, hdr.rst_err, hdr.garbage, hdr.original_size,
+            hdr.prefix_garbage, hdr.embedded_jpeg,
+            truncated=hdr.early_eof)
     return recode_baseline_jpeg(
         hdr.hdrdata, planes, handoffs, info, hdr.padbit,
         hdr.rst_cnt, hdr.rst_cnt_set, hdr.rst_err, hdr.garbage,
@@ -272,9 +297,9 @@ def batch_decompress_device(leps, device=None, stats=None) -> list:
     """Decode many .lep containers on one card: the requests are grouped
     by coder (rANS lanes for container v3, VPX lanes for v1 and v2, as
     lepton_tpu.api.batch_decompress_tpu groups them, :496-536), and every
-    segment of every request of a group is a lane of one decoder kernel
-    launch, with each lane's colour tables routed to its own request.
-    Returns the original JPEG bytes of each, identical to
+    segment of every request of a group, mode Z or X, is a lane of one
+    decoder kernel launch, with each lane's colour tables routed to its
+    own request.  Returns the original JPEG bytes of each, identical to
     decompress_device on it alone and to the JAX package's
     batch_decompress_tpu.
 

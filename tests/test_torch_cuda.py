@@ -474,3 +474,40 @@ def test_cuda_path_never_runs_plain(cuda, monkeypatch):
 def test_roofline_probe_matches_plain(cuda, kind, K, shared):
     got = decode_roofline.probe(kind, 3000, K, shared, cuda)
     assert int(got) == decode_roofline.probe_plain(kind, 3000, K, shared)
+
+
+def _scan_kind(kind: str) -> bytes:
+    """Small JPEGs outside mode Z or three components: progressive,
+    baseline with one scan a component, CMYK baseline and progressive."""
+    if kind == "multi_scan":
+        return chip_smoke.multi_scan_jpeg(chip_smoke.make_photo(13, 64, 48))
+    return chip_smoke.make_photo(
+        12, 64, 48, progressive=kind.endswith("progressive"),
+        mode="CMYK" if kind.startswith("cmyk") else "RGB")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 3])
+@pytest.mark.parametrize("kind", ["progressive", "multi_scan", "cmyk",
+                                  "cmyk_progressive"])
+def test_mode_x_and_four_colors_cuda_equals_cpu(cuda, kind, version):
+    """Encode bytes, the decoder's planes and the decoded JPEG are the same
+    on cuda as on the CPU; the planes are the parse's and the JPEG the
+    original."""
+    data = _scan_kind(kind)
+    kw = dict(num_segments=4, version=version, allow_progressive=True,
+              allow_four_colors=True)
+    lep = api.compress_device(data, **kw)
+    assert lep == api.compress_device(data, device="cpu", **kw)
+    assert chr(lep[3]) == ("Z" if kind == "cmyk" else "X")
+    plan = vpx_decoder.plan_decode([api._decode_request(lep)[0]],
+                                   "ans" if version == 3 else "vpx")
+    coef, err = vpx_decoder.decode_lanes(**plan.to(cuda))
+    coef_p, err_p = vpx_decoder.decode_lanes(**plan.to("cpu"))
+    assert torch.equal(coef.cpu(), coef_p) and not err.any() \
+        and not err_p.any()
+    _, _, dec = api._parse(data, True, True)
+    planes, _ = vpx_decoder.split_planes(plan, coef_p.numpy(), err_p)[0]
+    assert all(np.array_equal(a, b) for a, b in zip(planes, dec.planes))
+    assert api.decompress_device(lep) == data \
+        == api.decompress_device(lep, device="cpu")

@@ -6,16 +6,14 @@ decompress_device / batch_decompress_device with device="cpu" run the
 plain PyTorch version of the decode kernel; they must give back the
 original JPEG bytes, as the JAX package's host decompress does.  The
 cases of tests/test_torch_encode.py are decoded in
-tests/test_torch_decode_cases.py.  Inputs are PIL-made JPEGs from numpy
+tests/test_torch_decode_cases.py, mode-X and 4-colour containers in
+tests/test_torch_progressive.py.  Inputs are PIL-made JPEGs from numpy
 seeds.
 """
-import io
 import zlib
 
-import numpy as np
 import pytest
 import torch
-from PIL import Image
 
 jax = pytest.importorskip("jax")
 
@@ -90,16 +88,7 @@ def _corrupt(lep: bytes) -> bytes:
                                              for s in streams]))
 
 
-def _cmyk_jpeg() -> bytes:
-    rng = np.random.default_rng(8)
-    buf = io.BytesIO()
-    Image.fromarray(rng.integers(0, 256, (16, 16, 4), dtype=np.uint8),
-                    "CMYK").save(buf, "JPEG", quality=80)
-    return buf.getvalue()
-
-
-@pytest.mark.parametrize("kind", ["mode_y", "mode_x", "v2", "v3",
-                                  "four_colors", "corrupt"])
+@pytest.mark.parametrize("kind", ["mode_y", "v2", "v3", "corrupt"])
 def test_unsupported_raises(kind, monkeypatch):
     """Each request the device path does not cover raises LeptonError
     naming it; v2 and v3 containers raise so only where the brotli
@@ -107,16 +96,10 @@ def test_unsupported_raises(kind, monkeypatch):
     data = _jpeg(32, 32, seed=4, quality=80, subsampling=2)
     if kind == "mode_y":
         lep, reason = japi.generic_compress(b"not a jpeg"), "mode-Y"
-    elif kind == "mode_x":
-        prog = _jpeg(32, 32, seed=4, quality=80, progressive=True)
-        lep, reason = japi.compress(prog, allow_progressive=True), "mode-X"
     elif kind in ("v2", "v3"):
         lep = japi.compress(data, version=int(kind[1]))
         reason = f"{kind} needs brotli"
         monkeypatch.setattr(brotli_ffi, "available", lambda: False)
-    elif kind == "four_colors":
-        lep = japi.compress(_cmyk_jpeg(), allow_four_colors=True)
-        reason = "4 colours"
     else:
         lep, reason = _corrupt(japi.compress(data)), "inconsistent"
         plan = vpx_decoder.plan_decode([api._decode_request(lep)[0]])

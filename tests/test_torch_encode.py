@@ -51,17 +51,18 @@ def _jpeg(w, h, seed=0, mode="RGB", **kw) -> bytes:
     return buf.getvalue()
 
 
-def _port_with_segments(data: bytes, k: int) -> bytes:
+def _port_with_segments(data: bytes, k: int, version: int = 1,
+                        allow_progressive: bool = False) -> bytes:
     """The port's container with compress(min_threads=k)'s segmentation."""
-    parsed, info, dec = api._parse(data)
+    parsed, info, dec = api._parse(data, allow_progressive)
     h = dec.handoffs
     nt = choose_num_threads(len(h), h[-1].segment_size - h[0].segment_size,
                             k, k)
     splits = select_splits(h, nt)
     streams = batch_encode.encode_images_device(
-        [api._describe(info, dec, splits)],
+        [api._describe(info, dec, splits)], version,
         template=api._model_template_packed(), device="cpu")[0]
-    return api._container(parsed, dec, splits, nt, streams)
+    return api._container(parsed, dec, splits, nt, streams, version)
 
 
 def test_compress_device_matches_compress_tpu():
@@ -186,7 +187,9 @@ def test_port_imports_no_jax_and_no_lepton_tpu():
         src = open(path).read()
         assert not bad.search(src), path
     code = ("import sys, lepton_tpu_torch.api, lepton_tpu_torch.kernels."
-            "vpx_coder; mods = [m for m in sys.modules if m == 'jax' or "
+            "vpx_coder, lepton_tpu_torch.jpeg.progressive, "
+            "lepton_tpu_torch.jpeg.recode_progressive; mods = [m for m in "
+            "sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.split('.')[0] == 'lepton_tpu']; "
             "print(mods); assert not mods")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
