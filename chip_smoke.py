@@ -19,7 +19,7 @@ Phases (any failure exits non-zero, before the result line):
      under a trained-template start arena, the stage lanes (empty,
      one-symbol, odd and even lanes, FIXED_PROB and PAD slots, one branch
      past both count overflows, a template's prob-0 branch), and a framed
-     20k-symbol prefix of every lane of the full-size batch of phase 4;
+     10k-symbol prefix of every lane of the full-size batch of phase 4;
   3. encode small images on cuda and on cpu: equal .lep bytes;
   4. the main path: batch_compress_device on four synthetic 12 MP
      4032x3024 4:2:0 q90 JPEGs, 16 segments each (64 coder lanes), with the
@@ -43,7 +43,7 @@ Phases (any failure exits non-zero, before the result line):
      branches a lane.  Then the
      decoder is timed again on all 64 lanes and on the longest lane alone,
      and held against its plain version on all 64 lanes of the main path,
-     each cut to its first rows of a few dozen blocks, with plane widths,
+     each cut to its first row of a few dozen blocks, with plane widths,
      output offsets, ring and plane sizes as the main path gives them;
   8. hold the ANS coder's kernels against their plain versions on CUDA
      tensors, kernel by kernel (run_heads and walk_runs under the adv rule,
@@ -83,7 +83,24 @@ Phases (any failure exits non-zero, before the result line):
      progressive one, a CMYK one) give equal v1 and v3 bytes on cuda and
      cpu and decode to the original (or, on a file that hits the
      reference's q100 quirk, to the host re-emit of its parse); one
-     4032x3024 CMYK photo encodes and decodes as v1, one launch each.
+     4032x3024 CMYK photo encodes and decodes as v1, one launch each;
+ 14. the -tpu batch server and the CLI, as a user starts them: `python -m
+     lepton_tpu_torch -tpu -socket=... -zliblisten=...` in a subprocess.
+     Wave A sends phase 4's four photos and their four v1 .lep files on
+     eight connections before reading any reply: one wave, each JPEG
+     reply equal to batch_compress_device(num_segments=8) in this process
+     (32 coder lanes), each .lep reply its photo, every host-route
+     counter 0, every JPEG reply verified by the host decoder, one launch
+     of each coder kernel and of the VPX reader.  Wave B: phase 9's v3
+     .lep (one rANS reader launch), a mode-Y .lep (host, mode_y), a
+     160x96 JPEG (its cpu device bytes, whichever path), a corrupt JPEG
+     and an unknown payload (zero bytes; host_kind), with
+     encode_batch_failed 2 if both JPEGs shared a wave, else 1.  Wave C:
+     a 160x96 JPEG over the zlib port, served by the card.  Then the
+     one-shot CLI encodes photo 0 with -tpu and decodes it back with no
+     device flag (the card is the default), and with a time budget of
+     0.05 s exits 1 with no output (a device call over its budget is a
+     card fault).  The server must leave no child and exit 0 on SIGTERM.
 It prints stage times, sizes, rates and peak memory, then the card's name
 and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -883,6 +900,306 @@ def phase_mode_x(dev, base: dict) -> dict:
     return out
 
 
+SERVE_ROUTES = ("mode_y", "encode_batch_failed", "verify_failed",
+                "decode_failed", "host_kind")
+
+
+class Server:
+    """The -tpu batch server as a user starts it (python -m
+    lepton_tpu_torch -tpu -socket=... -zliblisten=...), its stderr in a
+    file, and clients that open every connection and send every payload
+    before they read any reply."""
+
+    def __init__(self, tmp: str):
+        import socket
+        self.sock = os.path.join(tmp, "serve.sock")
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            self.port = s.getsockname()[1]
+        self.err_path = os.path.join(tmp, "serve.err")
+        self.err = open(self.err_path, "w")
+        t = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "lepton_tpu_torch", "-tpu",
+             f"-socket={self.sock}", f"-zliblisten={self.port}"],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            stdout=subprocess.DEVNULL, stderr=self.err)
+        while "tpu batch serving enabled" not in self.stderr():
+            if self.proc.poll() is not None or time.perf_counter() - t > 300:
+                fail(f"[14] the server did not start: {self.stderr()}")
+            time.sleep(0.2)
+        self.start_s = time.perf_counter() - t
+        self.seen = 0
+
+    def stderr(self) -> str:
+        self.err.flush()
+        with open(self.err_path) as f:
+            return f.read()
+
+    def ask(self, payloads, zlib_port: bool = False):
+        """(replies, wall s, the records of the waves that served them)."""
+        import socket
+        import zlib
+        t = time.perf_counter()
+        conns = []
+        for _ in payloads:
+            if zlib_port:
+                c = socket.create_connection(("localhost", self.port))
+            else:
+                c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                c.connect(self.sock)
+            c.settimeout(600)
+            conns.append(c)
+        for c, p in zip(conns, payloads):
+            c.sendall(zlib.compress(p) if zlib_port else p)
+            c.shutdown(socket.SHUT_WR)
+        replies = []
+        for c in conns:
+            chunks = []
+            while True:
+                b = c.recv(1 << 20)
+                if not b:
+                    break
+                chunks.append(b)
+            c.close()
+            r = b"".join(chunks)
+            replies.append(zlib.decompress(r) if zlib_port and r else r)
+        wall = time.perf_counter() - t
+        waves = []
+        deadline = time.perf_counter() + 60
+        while sum(w["n"] for w in waves) < len(payloads):
+            if time.perf_counter() > deadline:
+                fail(f"[14] the server's wave lines are missing: "
+                     f"{self.stderr()[-3000:]}")
+            lines = [ln for ln in self.stderr().splitlines()
+                     if ln.startswith("tpu batch served ")]
+            for ln in lines[self.seen:]:
+                wave = json.loads(ln.split(" wave=", 1)[1])
+                wave["n"] = int(ln.split(" n=", 1)[1].split()[0])
+                waves.append(wave)
+            self.seen = len(lines)
+            time.sleep(0.05)
+        return replies, wall, waves
+
+    def children(self) -> list:
+        path = f"/proc/{self.proc.pid}/task/{self.proc.pid}/children"
+        with open(path) as f:
+            return f.read().split()
+
+    def stop(self) -> int:
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            rc = None
+        self.err.close()
+        return rc
+
+
+def total(waves, key: str) -> dict:
+    """The sum over waves of a dict-valued field of their records."""
+    out = {}
+    for w in waves:
+        for k, v in w[key].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def wave_split(w: dict) -> str:
+    """A wave's stage times, s: request reads, then the encode's stages,
+    the verification, the decode's stages and the replies."""
+    e, d = w["encode"], w["decode"]
+    parts = [("read", w.get("read_s", 0.0)),
+             ("parse", e.get("parse_s", 0.0)),
+             ("symbolize", e.get("symbolize_s", 0.0)
+              + e.get("assemble_s", 0.0)),
+             ("coder", e.get("coder_ms", 0.0) / 1e3),
+             ("mux", e.get("finalize_s", 0.0) + e.get("mux_s", 0.0)),
+             ("verify", w["verify_s"]),
+             ("reader", d.get("decoder_ms", 0.0) / 1e3),
+             ("re-emit", d.get("recode_s", 0.0)),
+             ("reply", w.get("reply_s", 0.0))]
+    return ", ".join(f"{k} {v:.3f}" for k, v in parts)
+
+
+def phase_serve(dev, blobs, leps, leps3) -> dict:
+    """Phase 14: the CLI and the -tpu batch server through the real entry
+    point, on phase 4's four photos and .lep files and phase 9's v3 file.
+    Returns the server's launches by kernel and the path of each."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        return _phase_serve(dev, blobs, leps, leps3, tmp)
+
+
+def _phase_serve(dev, blobs, leps, leps3, tmp: str) -> dict:
+    import torch
+    from lepton_tpu_torch import api
+    t = time.perf_counter()
+    want = api.batch_compress_device(blobs, num_segments=8)
+    torch.cuda.synchronize(dev)
+    want_s = time.perf_counter() - t
+    srv = Server(tmp)
+    log(f"[14] server up in {srv.start_s:.1f} s (python -m lepton_tpu_torch "
+        f"-tpu -socket -zliblisten={srv.port}); the four photos in one "
+        f"in-process batch_compress_device(num_segments=8): {want_s:.3f} s")
+    try:
+        # wave A: the four photos and their v1 .lep files, one wave, the
+        # server's first
+        replies, wall_a, waves = srv.ask(blobs + leps)
+        if len(waves) != 1:
+            fail(f"[14] wave A was served in {len(waves)} "
+                 "waves, not one")
+        a = waves[0]
+        if replies[:4] != want:
+            fail("[14] wave A: a JPEG reply differs from "
+                 "batch_compress_device(num_segments=8)")
+        if replies[4:] != blobs:
+            fail("[14] wave A: a .lep reply is not its "
+                 "original photo")
+        if any(a["host"].values()):
+            fail("[14] wave A went to the host path: "
+                 f"{a['host']}")
+        if a["verified"] != 4:
+            fail(f"[14] wave A verified {a['verified']} JPEG "
+                 "replies, not 4")
+        want_l = dict(run_heads=1, walk_runs=1, vpx_walk=1, ans_walk=0,
+                      vpx_reader=1, ans_reader=0)
+        if a["launches"] != want_l:
+            fail(f"[14] wave A launches {a['launches']}, "
+                 f"expected {want_l}")
+        if a["encode"]["lanes"] != 32 or a["decode"]["lanes"] != 64:
+            fail(f"[14] wave A: {a['encode']['lanes']} coder "
+                 f"lanes and {a['decode']['lanes']} reader lanes, not 32 "
+                 "and 64")
+        log("[14] wave A: 4 JPEGs + 4 v1 .lep in one wave of "
+            f"8, every reply right, host routes all 0, {a['verified']} "
+            "replies verified by the host decoder, launches "
+            f"{a['launches']}, {a['encode']['lanes']} coder lanes, "
+            f"longest {a['encode']['max_lane_symbols']} symbols; client "
+            f"wall {wall_a:.3f} s, wave wall {a['wall_s']:.3f} s "
+            f"(transcode {a['transcode_s']:.3f}), peak "
+            f"{a['peak_bytes'] / 2**30:.2f} GiB")
+        log(f"[14] wave A stage s: {wave_split(a)}; coder ms "
+            f"{stage_split(a['encode'])}, reader ms "
+            f"{a['decode']['vpx_decoder_ms']:.2f}")
+
+        # wave B: the edges, after wave A's replies are in
+        small = make_photo(SEED + 40, 160, 96)
+        corrupt = bytearray(make_photo(SEED + 41, 160, 96))
+        corrupt[2:6] = b"\xff\xc4\x00\x01"    # a DHT of impossible length
+        payload = np.random.default_rng(SEED + 42).integers(
+            0, 256, 5000, dtype=np.uint8).tobytes()
+        mode_y = api.generic_compress(payload)
+        unknown = b"neither a JPEG nor a lepton container"
+        small_cpu = api.compress_device(small, num_segments=8, device="cpu")
+        replies, wall_b, waves_b = srv.ask(
+            [leps3[0], mode_y, small, bytes(corrupt), unknown])
+        host_b = total(waves_b, "host")
+        together = any(w["jpeg"] == 2 for w in waves_b)
+        want_h = dict.fromkeys(SERVE_ROUTES, 0)
+        want_h.update(mode_y=1, host_kind=1,
+                      encode_batch_failed=2 if together else 1)
+        if host_b != want_h:
+            fail(f"[14] wave B host routes {host_b}, expected {want_h}")
+        if replies != [blobs[0], payload, small_cpu, b"", b""]:
+            fail("[14] wave B: a reply is wrong (v3 photo, mode-Y payload, "
+                 "small JPEG, or a non-empty reply to the corrupt JPEG or "
+                 "the unknown payload)")
+        launches_b = total(waves_b, "launches")
+        if launches_b["ans_reader"] != 1:
+            fail(f"[14] wave B: {launches_b['ans_reader']} rANS reader "
+                 "launches, not 1")
+        log(f"[14] wave B: v3 .lep, mode-Y .lep, 160x96 JPEG, corrupt JPEG, "
+            f"unknown payload in {len(waves_b)} wave(s) of "
+            f"{[w['n'] for w in waves_b]}; every reply right; host routes "
+            f"{ {k: v for k, v in host_b.items() if v} }; launches "
+            f"{launches_b}; client wall {wall_b:.3f} s, wave walls "
+            f"{[round(w['wall_s'], 3) for w in waves_b]} s")
+        for k, w in enumerate(waves_b):
+            log(f"[14] wave B.{k} stage s: {wave_split(w)}")
+
+        # wave C: one small JPEG alone, over the zlib port
+        small_c = make_photo(SEED + 43, 160, 96)
+        want_c = api.compress_device(small_c, num_segments=8)
+        replies, wall_c, waves_c = srv.ask([small_c], zlib_port=True)
+        c = waves_c[0]
+        if replies != [want_c]:
+            fail("[14] wave C: the zlib port's reply differs from "
+                 "compress_device(num_segments=8)")
+        if any(c["host"].values()) or c["launches"]["vpx_walk"] != 1:
+            fail(f"[14] wave C: host routes {c['host']}, launches "
+                 f"{c['launches']}")
+        log(f"[14] wave C: a 160x96 JPEG over the zlib port, served by the "
+            f"card (launches {c['launches']}), host routes unchanged; "
+            f"client wall {wall_c:.3f} s")
+        kids = srv.children()
+        if kids:
+            fail(f"[14] the server left children {kids}")
+    finally:
+        rc = srv.stop()
+    if rc != 0:
+        fail(f"[14] the server exited with {rc}: {srv.stderr()[-3000:]}")
+
+    # the one-shot CLI, encode then decode, through the card
+    src = os.path.join(tmp, "photo0.jpg")
+    lep, back = os.path.join(tmp, "photo0.lep"), os.path.join(tmp, "back.jpg")
+    with open(src, "wb") as f:
+        f.write(blobs[0])
+    walls = []
+    # the encode as JAX scripts call it, the decode with the port's default
+    for flags, a_in, a_out in ((["-tpu"], src, lep), ([], lep, back)):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "lepton_tpu_torch", *flags,
+                            a_in, a_out], cwd=HERE, capture_output=True,
+                           text=True, env=dict(os.environ, PYTHONPATH=HERE),
+                           timeout=600)
+        walls.append(time.perf_counter() - t)
+        if r.returncode != 0 or "falling back" in r.stderr \
+                or "host codec" in r.stderr:
+            fail(f"[14] the CLI {flags} on {a_in}: rc {r.returncode}, "
+                 f"{r.stderr[-2000:]}")
+    with open(lep, "rb") as f:
+        cli_lep = f.read()
+    with open(back, "rb") as f:
+        cli_back = f.read()
+    if cli_lep != want[0] or cli_back != blobs[0]:
+        fail("[14] the -tpu CLI: .lep differs from the server's, or the "
+             "decode is not the original")
+    log(f"[14] one-shot CLI on the card: photo 0 encode (-tpu) "
+        f"{walls[0]:.2f} s, decode (no device flag) {walls[1]:.2f} s "
+        f"(process start included); .lep equal to the server's, the "
+        f"original back; server exited 0")
+    # a device call over its time budget is a card fault: exit 1 at once,
+    # a message naming CUDA, no output, no host fallback
+    hung = os.path.join(tmp, "hung.lep")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lepton_tpu_torch", src, hung],
+                       cwd=HERE, capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=HERE,
+                                LEPTON_TPU_TIMEOUT_S="0.05"))
+    hung_wall = time.perf_counter() - t
+    if r.returncode != 1 or "CUDA card failure" not in r.stderr \
+            or "falling back" in r.stderr \
+            or (os.path.exists(hung) and os.path.getsize(hung)):
+        fail(f"[14] the CLI past LEPTON_TPU_TIMEOUT_S=0.05: rc "
+             f"{r.returncode}, {r.stderr[-2000:]}")
+    log(f"[14] the CLI with LEPTON_TPU_TIMEOUT_S=0.05: exit 1 in "
+        f"{hung_wall:.2f} s, no output, no host fallback "
+        f"({r.stderr.strip().splitlines()[-1]})")
+    launched = total([a] + waves_b + waves_c, "launches")
+    paths = dict(
+        run_heads="phase 14 waves A and C (and B when the small "
+                  "JPEG is served alone): -tpu server, 8 segments a photo",
+        walk_runs="as run_heads", vpx_walk="as run_heads",
+        ans_walk="none: the -tpu server encodes v1, as lepton -tpu does",
+        vpx_reader="phase 14 wave A: four v1 .lep of 16 segments",
+        ans_reader="phase 14 wave B: one v3 .lep of 16 segments")
+    return {k: (launched[k], paths[k]) for k in paths}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1586,6 +1903,17 @@ def main() -> None:
         rows[name]["ms_mode_x"] = stats[ms_key]
         rows[name]["mode_x_path"] = (f"phase 13, v{version}: 4 progressive "
                                      "4032x3024 q90 photos, 64 lanes")
+
+    # ---- phase 14: the -tpu batch server and the one-shot CLI
+    served = phase_serve(dev, blobs, leps, leps3)
+    for name, counter in (("vpx_coder", "vpx_walk"),
+                          ("run_heads", "run_heads"),
+                          ("walk_runs", "walk_runs"),
+                          ("ans_coder", "ans_walk"),
+                          ("vpx_decoder", "vpx_reader"),
+                          ("ans_reader", "ans_reader")):
+        rows[name]["launches_serve"], rows[name]["serve_path"] = \
+            served[counter]
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

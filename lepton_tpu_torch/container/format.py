@@ -142,8 +142,11 @@ def write_container(hdr: LeptonHeader, mux_data: bytes,
     return bytes(out)
 
 
-def read_container(data: bytes):
-    """Returns (LeptonHeader, mux_region_bytes)."""
+def read_container(data: bytes, pending_header: Optional[bytes] = None):
+    """Returns (LeptonHeader, mux_region_bytes).  pending_header: the rest
+    of the previous container's header block after its CNT marker, which
+    the continuation containers of a -lepcat stream read in place of their
+    own (their header-size field is zero; jpgcoder.cc:4138-4142)."""
     if data[:2] not in (C.LEPTON_HEADER, C.UJG_HEADER):
         raise ContainerError("bad magic")
     hdr = LeptonHeader()
@@ -157,7 +160,10 @@ def read_container(data: bytes):
     hdr.git_revision = data[8:20]
     hdr.original_size = int.from_bytes(data[20:24], "little")
     ch_size = int.from_bytes(data[24:28], "little")
-    block = _decompress_header(data[28:28 + ch_size], hdr.version)
+    if pending_header:
+        block = pending_header
+    else:
+        block = _decompress_header(data[28:28 + ch_size], hdr.version)
     pos = 28 + ch_size
     hdr.pending_header = _parse_header_block(hdr, block)
     if data[pos:pos + 3] != b"CMP":

@@ -6,13 +6,12 @@ offsets via the handoffs' overhang byte/bits, 0xFF bytes are re-stuffed,
 restart markers and stray-RST errors are replayed, and output is
 byte-bounded for truncated originals.  The native library's
 lepton_recode_rows runs the row loop when it builds (use_native), the Python
-loop below otherwise; both give the same bytes.  The streaming variant of
-the JAX module is not copied.
+loop below otherwise; both give the same bytes.  The streaming variant,
+recode_baseline_jpeg_streaming (:376-443), re-emits from ring-sized planes
+a row at a time, in the native library only.
 """
 from __future__ import annotations
 
-import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -182,16 +181,6 @@ def _recode_one_mcu_row(huffw: BitWriter, mcu: int, out: BoundedWriter,
     return True
 
 
-def _parallel_map(fn, jobs):
-    """Thread-pool map for the GIL-dropping native segment re-emits; serial
-    for one job or one CPU."""
-    workers = min(8, os.cpu_count() or 1, len(jobs))
-    if workers <= 1:
-        return [fn(j) for j in jobs]
-    with ThreadPoolExecutor(max_workers=workers) as ex:
-        return list(ex.map(fn, jobs))
-
-
 def _native_available() -> bool:
     try:
         from .. import _native
@@ -319,6 +308,9 @@ def _recode_native(out: BoundedWriter, byte_position: int, hdrdata: bytes,
                 tables=tables, sc=_native.build_hscan(info))
             return seg_buf[:p2], (ob, nb, dc)
 
+        # the host codec's pool: its threads exist before a jail, which
+        # bans the stack mmap of a new one (host._warm_pool)
+        from ..host import _parallel_map
         outs = _parallel_map(run_seg, handoffs)
         for i in range(len(handoffs) - 1):
             ob, nb, dc = outs[i][1]
@@ -369,6 +361,76 @@ def _recode_native(out: BoundedWriter, byte_position: int, hdrdata: bytes,
             info, planes_c, start_row, end_row, running_ob, running_nb,
             running_dc, padbit, rst_cnt, rst_cnt_set,
             buf, bound, pos, tables=tables, sc=sc)
+
+    result = bytearray(buf[:min(pos, bound)].tobytes())
+    if rst_err:
+        cumulative = ((info.mcuh * info.mcuv - 1) // info.rsti
+                      if info.rsti else 0)
+        for i in range(rst_err[0]):
+            if len(result) < bound:
+                result.append(0xFF)
+            if len(result) < bound:
+                result.append(0xD0 + ((cumulative + i) & 7))
+    if len(result) < bound:
+        result += hdrdata[byte_position:
+                          byte_position + (bound - len(result))]
+    result += garbage[:max(0, max_file_size - len(result))]
+    return bytes(result)
+
+
+def recode_baseline_jpeg_streaming(hdrdata: bytes, planes_ring, row_masks,
+                                   ensure_decoded, handoffs,
+                                   info: ImageInfo, padbit: int,
+                                   rst_cnt, rst_cnt_set: bool, rst_err,
+                                   garbage: bytes, max_file_size: int,
+                                   prefix_garbage=None,
+                                   embedded_jpeg: bool = False) -> bytes:
+    """Streaming re-emit over ring-indexed planes: `ensure_decoded(mcu_row)`
+    is called before each MCU row is re-encoded, so decode memory stays
+    O(width) (the reference's 2-row memory-optimized single-thread decode,
+    uncompressed_components.hh:90-108).  Byte-identical to
+    recode_baseline_jpeg."""
+    from .. import _native
+    grbs = len(garbage)
+    out = BoundedWriter(max(0, max_file_size - grbs))
+    byte_position = _handle_initial_segments(
+        out, hdrdata, info, prefix_garbage, embedded_jpeg)
+    if padbit == -1:
+        padbit = 0
+    bound = max(0, max_file_size - grbs)
+    buf = np.zeros(max_file_size + 65536, dtype=np.uint8)
+    pos = len(out.buf)
+    buf[:pos] = np.frombuffer(bytes(out.buf), dtype=np.uint8)
+
+    planes_c = [np.ascontiguousarray(p.reshape(p.shape[0], -1),
+                                     dtype=np.int16) for p in planes_ring]
+    sc = _native.build_hscan(info, row_masks=row_masks)
+    tables = _native.build_huff_tables(info)
+    luma_mul = info.cmpnfo[0].bcv // info.mcuv
+
+    running_ob = handoffs[0].overhang_byte
+    running_nb = (0 if handoffs[0].is_legacy_mode()
+                  else handoffs[0].num_overhang_bits)
+    running_dc = list(handoffs[0].last_dc)
+    for seg_i, th in enumerate(handoffs):
+        if not th.is_legacy_mode():
+            if seg_i > 0:
+                if th.num_overhang_bits != running_nb or \
+                        th.overhang_byte != running_ob or \
+                        list(th.last_dc[:3]) != running_dc[:3]:
+                    raise RecodeError(f"handoff mismatch at segment {seg_i}")
+            running_ob = th.overhang_byte
+            running_nb = th.num_overhang_bits
+            running_dc = list(th.last_dc)
+        start_row = th.luma_y_start // luma_mul
+        end_row = th.luma_y_end // luma_mul
+        for mcu_row in range(start_row, end_row):
+            ensure_decoded(mcu_row)
+            pos, running_ob, running_nb, running_dc = \
+                _native.native_recode_rows(
+                    info, planes_c, mcu_row, mcu_row + 1, running_ob,
+                    running_nb, running_dc, padbit, rst_cnt, rst_cnt_set,
+                    buf, bound, pos, tables=tables, sc=sc)
 
     result = bytearray(buf[:min(pos, bound)].tobytes())
     if rst_err:

@@ -43,7 +43,8 @@ def _nvcc() -> str:
             or "/usr/local/cuda/bin/nvcc")
 
 
-def _stale(name: str) -> bool:
+def stale(name: str) -> bool:
+    """True when build/lib<name>.so is missing or older than its sources."""
     so = so_path(name)
     if not os.path.exists(so):
         return True
@@ -90,7 +91,7 @@ def load(name: str) -> ctypes.CDLL:
     sources."""
     with _lock:
         if name not in _libs:
-            if _stale(name):
+            if stale(name):
                 build([name])
             _libs[name] = ctypes.CDLL(so_path(name))
         return _libs[name]

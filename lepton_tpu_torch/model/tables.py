@@ -3,12 +3,12 @@
 Copy of the table layout of lepton_tpu/model/tables.py (struct Model,
 reference src/vp8/model/model.hh:60-156): the same table order, offsets and
 strides, so a branch index means the same branch in both packages.  Adds
-arena_from_template, the coder kernel's start state.
+arena_from_template, the coder kernel's start state.  torch is imported
+only there: the host codec reads ARENA_SIZE and must not load torch.
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .. import constants as C
 
@@ -47,7 +47,7 @@ TABLE_STRIDES = {
 IDENTITY_BRANCH = 1 | (1 << 8) | (128 << 16)
 
 
-def arena_from_template(packed: np.ndarray) -> torch.Tensor:
+def arena_from_template(packed: np.ndarray) -> "torch.Tensor":
     """The coder kernel's start arena from a trained-model template.
 
     packed: uint32 [ARENA_SIZE] in the layout of
@@ -62,4 +62,5 @@ def arena_from_template(packed: np.ndarray) -> torch.Tensor:
     tc = (p >> 8) & 0xFF
     prob = p & 0xFF
     arena = (fc | (tc << 8) | (prob << 16)).astype(np.int32)
+    import torch
     return torch.from_numpy(arena)

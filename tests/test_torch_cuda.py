@@ -511,3 +511,32 @@ def test_mode_x_and_four_colors_cuda_equals_cpu(cuda, kind, version):
     assert all(np.array_equal(a, b) for a, b in zip(planes, dec.planes))
     assert api.decompress_device(lep) == data \
         == api.decompress_device(lep, device="cpu")
+
+
+@pytest.mark.cuda
+def test_serve_wave_cuda_equals_cpu(cuda):
+    """A small mixed wave through serve._process_tpu_batch answers on cuda
+    what it answers on cpu: two JPEGs (one coder launch of each kernel),
+    a v1 and a v3 .lep (one launch of each reader), every host-route
+    count 0, every JPEG reply verified; the parse runs in jailed
+    children, as the -tpu server runs it."""
+    from lepton_tpu_torch import cli, serve
+    jpegs = [chip_smoke.make_photo(7 + k, 64 + 32 * k, 48) for k in range(2)]
+    leps = [api.compress(jpegs[0], max_threads=2),
+            api.compress(jpegs[1], max_threads=2, version=3)]
+    cli._prepare_for_jail({})
+    replies, waves = {}, {}
+    for dev in ("cpu", "cuda"):
+        reqs = [[None, False, d, b""] for d in jpegs + leps]
+        waves[dev] = serve.new_wave()
+        serve._process_tpu_batch(reqs, dict(device=dev, max_threads=8),
+                                 waves[dev])
+        replies[dev] = [r[3] for r in reqs]
+    assert replies["cuda"] == replies["cpu"]
+    assert replies["cuda"][2:] == jpegs
+    assert [api.decompress(r) for r in replies["cuda"][:2]] == jpegs
+    assert not any(waves["cuda"]["host"].values())
+    assert waves["cuda"]["verified"] == 2
+    assert waves["cuda"]["launches"] == dict(
+        run_heads=1, walk_runs=1, vpx_walk=1, ans_walk=0, vpx_reader=1,
+        ans_reader=1)

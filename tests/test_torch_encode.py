@@ -188,7 +188,8 @@ def test_port_imports_no_jax_and_no_lepton_tpu():
         assert not bad.search(src), path
     code = ("import sys, lepton_tpu_torch.api, lepton_tpu_torch.kernels."
             "vpx_coder, lepton_tpu_torch.jpeg.progressive, "
-            "lepton_tpu_torch.jpeg.recode_progressive; mods = [m for m in "
+            "lepton_tpu_torch.jpeg.recode_progressive, lepton_tpu_torch.cli, "
+            "lepton_tpu_torch.serve; mods = [m for m in "
             "sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.split('.')[0] == 'lepton_tpu']; "
             "print(mods); assert not mods")
