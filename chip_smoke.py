@@ -101,6 +101,21 @@ Phases (any failure exits non-zero, before the result line):
      device flag (the card is the default), and with a time budget of
      0.05 s exits 1 with no output (a device call over its budget is a
      card fault).  The server must leave no child and exit 0 on SIGTERM.
+ 15. more than one device and more than one process, every mesh made of
+     the one card's cuda:0 repeated: make_mesh() (the card's own devices);
+     sharded_phase_a over a (2, 2) mesh on phase 4's luma planes in two
+     row bands, [4, 2, 189, 504, 64], each key equal to phase_a on its
+     shard alone; decompress_device(mesh=) on phase 4's v1 and phase 9's
+     v3 files over cuda:0 x 2 and x 4 (one reader launch a share, each
+     share's ms beside the unsplit launch's, the merged planes equal to
+     the unsplit launch's, every original back); batch_compress over the
+     (2, 2) mesh at max_threads=8 (one launch of each coder kernel a
+     device; bytes equal to its device="host" route and to one
+     batch_compress_device(num_segments=8)) and batch_decompress back
+     through both routes; distributed_compress of photo 0 in 16 segments
+     by two processes on the card (run_ranks: gloo on 127.0.0.1, 8 lanes
+     and one launch of each coder kernel a rank), both ranks' bytes equal
+     to the world-1 call with either engine and decoding to the photo.
 It prints stage times, sizes, rates and peak memory, then the card's name
 and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -1200,6 +1215,321 @@ def _phase_serve(dev, blobs, leps, leps3, tmp: str) -> dict:
     return {k: (launched[k], paths[k]) for k in paths}
 
 
+RANK_TIMEOUT_S = 600           # each rank of run_ranks, and its gloo group
+RANK_SCRIPT = r"""
+import json, sys, time
+repo, rank, coord, src, out, nseg, device, timeout = sys.argv[1:9]
+sys.path.insert(0, repo)
+rank, nseg = int(rank), int(nseg)
+import torch.distributed as dist
+from lepton_tpu_torch.kernels import branch_probs, vpx_coder
+from lepton_tpu_torch.parallel import multihost
+multihost.init_distributed(coord, 2, rank, timeout_s=float(timeout))
+stats = {}
+t = time.perf_counter()
+lep = multihost.distributed_compress(
+    open(src, "rb").read(), num_segments=nseg,
+    device=None if device == "default" else device, stats=stats)
+stats["wall_s"] = time.perf_counter() - t
+stats["launches"] = {fn.__name__: fn.launches for fn in (
+    branch_probs.run_heads, branch_probs.walk_runs, vpx_coder.vpx_walk)}
+with open(out + str(rank), "wb") as f:
+    f.write(lep)
+print("rank " + json.dumps(stats), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def run_ranks(jpeg: bytes, nseg: int, device: str, tmp: str,
+              timeout: float = RANK_TIMEOUT_S) -> list:
+    """distributed_compress of `jpeg` in nseg segments by two processes,
+    ranks 0 and 1 of a gloo group on a free port of 127.0.0.1, each a
+    `python -c` child on `device` ("default" for distributed_compress's
+    own choice, cuda:<rank mod cards>).  Returns [(.lep bytes, the rank's
+    stats with its wall_s and its coder launches)] a rank.  Raises
+    RuntimeError with both ranks' stderr unless both exit 0 within
+    `timeout` seconds; no child outlives the call."""
+    import socket
+    src = os.path.join(tmp, "ranks.jpg")
+    out = os.path.join(tmp, "ranks.lep")
+    with open(src, "wb") as f:
+        f.write(jpeg)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_SCRIPT, HERE, str(rank), coord, src, out,
+         str(nseg), device, str(timeout)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in (0, 1)]
+    deadline = time.perf_counter() + timeout
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs += [p.communicate() for p in procs[len(outs):]]
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("distributed_compress ranks exited "
+                           f"{[p.returncode for p in procs]}:\n" + "\n".join(
+                               f"rank {r} stderr: {e[-3000:]}"
+                               for r, (_, e) in enumerate(outs)))
+    res = []
+    for rank, (so, _) in enumerate(outs):
+        line = [ln for ln in so.splitlines() if ln.startswith("rank ")][-1]
+        with open(out + str(rank), "rb") as f:
+            res.append((f.read(), json.loads(line[5:])))
+    return res
+
+
+def phase_parallel(dev, blobs, leps, leps3, descs) -> dict:
+    """Phase 15: the parallel layer on the card, with every mesh made of
+    cuda:0 repeated (one card): make_mesh, sharded_phase_a, the
+    lane-sharded decode of phase 4's v1 and phase 9's v3 files, the card
+    routes of batch_compress and batch_decompress, and distributed_compress
+    in two processes.  Returns {counter: (launches, path)} of its routes."""
+    import tempfile
+    import torch
+    from lepton_tpu_torch import api
+    from lepton_tpu_torch.kernels import contexts, vpx_decoder
+    from lepton_tpu_torch.parallel import mesh as pmesh
+    from lepton_tpu_torch.parallel import multihost
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launched = dict.fromkeys(launch_counts(), 0)
+
+    m = pmesh.make_mesh()
+    log(f"[15] make_mesh(): shape {m.shape}, devices "
+        f"{[str(d) for d in m.devices.flat]}")
+    if m.size != torch.cuda.device_count():
+        fail(f"[15] make_mesh() holds {m.size} devices of "
+             f"{torch.cuda.device_count()}")
+    grid = pmesh.Mesh(np.array([dev] * 4, dtype=object).reshape(2, 2),
+                      ("data", "seg"))
+
+    # sharded phase A: the luma planes in two row bands each
+    ct = descs[0]["color_tables"][0]
+    tabs = [np.asarray(a, np.int32) for a in (
+        ct.quant, ct.icos_idct_edge_8192_dequantized_x,
+        ct.icos_idct_edge_8192_dequantized_y)]
+    if any(not np.array_equal(d["color_tables"][0].quant, ct.quant)
+           for d in descs):
+        fail("[15] the photos' luma tables differ")
+    H, W = descs[0]["planes"][0].shape[:2]
+    batch = np.stack([d["planes"][0][:H // 2 * 2] for d in descs]).reshape(
+        len(descs), 2, H // 2, W, 64)
+    t = time.perf_counter()
+    bundle = pmesh.sharded_phase_a(batch, *tabs, grid)
+    torch.cuda.synchronize(dev)
+    sharded_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for i in range(batch.shape[0]):
+        for j in range(2):
+            ref = contexts.phase_a(torch.as_tensor(batch[i, j], device=dev),
+                                   *(torch.as_tensor(a, device=dev)
+                                     for a in tabs))
+            for key, v in ref.items():
+                if not torch.equal(bundle[key][i, j], v):
+                    fail(f"[15] sharded_phase_a {key} of shard ({i}, {j}) "
+                         "differs from phase_a on it alone")
+    torch.cuda.synchronize(dev)
+    alone_s = time.perf_counter() - t
+    log(f"[15] sharded_phase_a on a (2, 2) mesh of {dev}: "
+        f"{list(batch.shape)} in {sharded_s:.3f} s, its {len(bundle)} keys "
+        f"equal to phase_a on each of the 8 shards alone ({alone_s:.3f} s)")
+    del bundle, ref
+
+    # the lane-sharded decode: 16 lanes over cuda:0 x 2 and x 4
+    share_ms = {}
+    for version, files in ((1, leps), (3, leps3)):
+        coder = "ans" if version == 3 else "vpx"
+        counter = f"{coder}_reader"
+        for f, (lep, blob) in enumerate(zip(files, blobs)):
+            plan = vpx_decoder.plan_decode([api._decode_request(lep)[0]],
+                                           coder)
+            inputs = plan.to(dev)
+            (coef_u, err_u), ms_u = timed_cuda(
+                lambda: vpx_decoder.decode_lanes(**inputs))
+            del inputs
+            for n in (2, 4):
+                seg = pmesh.Mesh([dev] * n, ("seg",))
+                reset_launches()
+                st = {}
+                t = time.perf_counter()
+                out = api.batch_decompress_device([lep], stats=st,
+                                                  mesh=seg)[0]
+                wall = time.perf_counter() - t
+                launched[counter] += expect_launches(
+                    f"[15] v{version} file {f} over {dev} x{n}",
+                    **{counter: n})[counter]
+                if out != blob:
+                    fail(f"[15] v{version} file {f} over {dev} x{n}: not "
+                         "the original JPEG")
+                coef, err, *_ = pmesh.decode_shares(plan, seg, None, dev)
+                if not (torch.equal(coef, coef_u)
+                        and torch.equal(err, err_u)):
+                    fail(f"[15] v{version} file {f} over {dev} x{n}: merged "
+                         "planes differ from the unsplit launch's")
+                del coef, err
+                ms = st[f"{coder}_decoder_ms"]
+                share_ms.setdefault((version, n), []).append(max(ms) / ms_u)
+                log(f"[15] v{version} file {f} over {dev} x{n}: {n} "
+                    f"{coder} reader launches of {16 // n} lanes, ms "
+                    f"{[round(x, 2) for x in ms]} against {ms_u:.2f} "
+                    f"unsplit; merge {st['merge_s']:.3f} s, wall "
+                    f"{wall:.3f} s; planes equal, JPEG back")
+            del coef_u, err_u
+    log("[15] longest share / unsplit launch, mean of the 4 files: " + ", ".join(
+        f"v{v} x{n} {np.mean(r):.2f}" for (v, n), r in share_ms.items()))
+
+    # batch_compress and batch_decompress over the (2, 2) mesh, v1 and v3
+    for version, counter in ((1, "vpx_walk"), (3, "ans_walk")):
+        t = time.perf_counter()
+        host = pmesh.batch_compress(blobs, device="host", max_threads=8,
+                                    version=version)
+        host_s = time.perf_counter() - t
+        one_call = api.batch_compress_device(blobs, num_segments=8,
+                                             version=version)
+        reset_launches()
+        st = {}
+        t = time.perf_counter()
+        card = pmesh.batch_compress(blobs, mesh=grid, max_threads=8,
+                                    version=version, stats=st)
+        torch.cuda.synchronize(dev)
+        card_s = time.perf_counter() - t
+        got = expect_launches(f"[15] batch_compress v{version} over (2, 2)",
+                              run_heads=4, walk_runs=4, **{counter: 4})
+        for k in ("run_heads", "walk_runs", counter):
+            launched[k] += got[k]
+        if card != host or card != one_call:
+            fail(f"[15] batch_compress v{version}: the card route differs "
+                 "from its host route or from batch_compress_device("
+                 "num_segments=8)")
+        log(f"[15] batch_compress v{version} over a (2, 2) mesh of {dev}, "
+            f"max_threads=8: launches {got}; bytes equal to device='host' "
+            f"({host_s:.3f} s) and to one batch_compress_device call; wall "
+            f"{card_s:.3f} s (parse {st['parse_s']:.3f}, symbolize "
+            f"{st['symbolize_s']:.3f}, code {st['code_s']:.3f}, mux "
+            f"{st['mux_s']:.3f})")
+        for row in st["rows"]:
+            log(f"[15]   row {row['data']}: images {row['images']}, "
+                f"symbolize {row['symbolize_s']:.3f} s")
+        coder_ms = "ans_coder_ms" if version == 3 else "coder_ms"
+        for sh in st["shares"]:
+            coded = (f"coder {sh[coder_ms]:.2f} ms "
+                     f"{stage_split(sh) if 'walk_ms' in sh else ''}"
+                     if coder_ms in sh else "no coder launch")
+            log(f"[15]   share data {sh['data']} seg {sh['seg']}: "
+                f"{sh['lanes']} lanes, assembly {sh['assemble_s']:.3f} s, "
+                f"{coded}")
+        if version == 1:
+            leps_mesh = card
+    reset_launches()
+    st = {}
+    t = time.perf_counter()
+    back = pmesh.batch_decompress(leps_mesh, mesh=grid, stats=st)
+    card_s = time.perf_counter() - t
+    launched["vpx_reader"] += expect_launches(
+        "[15] batch_decompress over (2, 2)", vpx_reader=4)["vpx_reader"]
+    t = time.perf_counter()
+    hback = pmesh.batch_decompress(leps_mesh, device="host")
+    host_s = time.perf_counter() - t
+    if back != blobs or hback != blobs:
+        fail("[15] batch_decompress did not give back the originals")
+    log(f"[15] batch_decompress over the (2, 2) mesh: 4 VPX reader "
+        f"launches; every JPEG back, card route {card_s:.3f} s, host route "
+        f"{host_s:.3f} s")
+    for r, row in enumerate(st["rows"]):
+        log(f"[15]   row {r}: requests {row['requests']}, {row['lanes']} "
+            f"lanes, reader ms {[round(x, 2) for x in row['vpx_decoder_ms']]}"
+            f", merge {row['merge_s']:.3f} s, d2h {row['d2h_s']:.3f} s, "
+            f"recode {row['recode_s']:.3f} s")
+    # lane counts the 'seg' axis does not divide: three v1 files (48 lanes)
+    # and a v3 file (16) over a (1, 5) mesh, uneven shares of each coder
+    row5 = pmesh.Mesh(np.array([dev] * 5, dtype=object).reshape(1, 5),
+                      ("data", "seg"))
+    reset_launches()
+    st = {}
+    t = time.perf_counter()
+    back = pmesh.batch_decompress(leps[:3] + leps3[3:], mesh=row5, stats=st)
+    card_s = time.perf_counter() - t
+    got = expect_launches("[15] batch_decompress over (1, 5)", vpx_reader=5,
+                          ans_reader=5)
+    launched["vpx_reader"] += got["vpx_reader"]
+    launched["ans_reader"] += got["ans_reader"]
+    if back != blobs:
+        fail("[15] batch_decompress over (1, 5) did not give back the "
+             "originals")
+    row = st["rows"][0]
+    log(f"[15] batch_decompress of 3 v1 + 1 v3 .lep over a (1, 5) mesh of "
+        f"{dev}: {row['lanes']} lanes (48 VPX, 16 rANS) in uneven shares, "
+        f"5 launches of each "
+        f"reader, reader ms vpx "
+        f"{[round(x, 2) for x in row['vpx_decoder_ms']]} ans "
+        f"{[round(x, 2) for x in row['ans_decoder_ms']]}; every JPEG back "
+        f"in {card_s:.3f} s")
+
+    # distributed_compress: world 1 here, then two processes on the card
+    t = time.perf_counter()
+    world1 = multihost.distributed_compress(blobs[0], num_segments=16)
+    world1_s = time.perf_counter() - t
+    if multihost.distributed_compress(blobs[0], num_segments=16,
+                                      engine="host") != world1:
+        fail("[15] distributed_compress: device and host engines differ")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        t = time.perf_counter()
+        ranks = run_ranks(blobs[0], 16, "default", tmp)
+        ranks_s = time.perf_counter() - t
+    for rank, (lep, rs) in enumerate(ranks):
+        if lep != world1:
+            fail(f"[15] rank {rank}'s .lep differs from the world-1 call")
+        if rs["launches"] != dict(run_heads=1, walk_runs=1, vpx_walk=1) \
+                or rs["lanes"] != 8:
+            fail(f"[15] rank {rank}: lanes {rs['lanes']}, launches "
+                 f"{rs['launches']}")
+        for k, v in rs["launches"].items():
+            launched[k] += v
+        log(f"[15] rank {rank} of 2 on {dev}: {rs['lanes']} lanes, launches "
+            f"{rs['launches']}; parse {rs['parse_s']:.3f} s, symbolize "
+            f"{rs['symbolize_s']:.3f} s, assembly {rs['assemble_s']:.3f} s, "
+            f"coder {rs['coder_ms']:.2f} ms "
+            f"{stage_split(rs) if 'walk_ms' in rs else ''}, gather "
+            f"{rs['gather_s']:.3f} s; distributed_compress "
+            f"{rs['wall_s']:.3f} s")
+    reset_launches()
+    if api.decompress_device(world1) != blobs[0]:
+        fail("[15] the cooperative .lep does not decode to photo 0")
+    expect_launches("[15] decode of the cooperative .lep", vpx_reader=1)
+    log(f"[15] distributed_compress of photo 0 in 16 segments: both ranks' "
+        f"bytes equal, equal to the world-1 call ({world1_s:.3f} s) with "
+        f"either engine, and decode to the photo; two ranks in "
+        f"{ranks_s:.1f} s, process starts included")
+    log(f"[15] peak max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"(this process); phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    paths = dict(
+        run_heads="phase 15: batch_compress v1 and v3 over a (2, 2) mesh "
+                  "of cuda:0 (4 each, one a device) and "
+                  "distributed_compress's two ranks (1 each)",
+        walk_runs="as run_heads",
+        vpx_walk="phase 15: batch_compress v1 over (2, 2) (4) and "
+                 "distributed_compress's two ranks (1 each)",
+        ans_walk="phase 15: batch_compress v3 over (2, 2) (4); "
+                 "distributed_compress writes v1",
+        vpx_reader="phase 15: the four v1 .lep over cuda:0 x2 and x4 (one "
+                   "launch a share), batch_decompress over (2, 2) (4) and "
+                   "over (1, 5) (5)",
+        ans_reader="phase 15: the four v3 .lep over cuda:0 x2 and x4, and "
+                   "one over (1, 5) (5)")
+    return {k: (launched[k], paths[k]) for k in paths}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1914,6 +2244,16 @@ def main() -> None:
                           ("ans_reader", "ans_reader")):
         rows[name]["launches_serve"], rows[name]["serve_path"] = \
             served[counter]
+    # ---- phase 15: more than one device and more than one process
+    parallel = phase_parallel(dev, blobs, leps, leps3, descs)
+    for name, counter in (("vpx_coder", "vpx_walk"),
+                          ("run_heads", "run_heads"),
+                          ("walk_runs", "walk_runs"),
+                          ("ans_coder", "ans_walk"),
+                          ("vpx_decoder", "vpx_reader"),
+                          ("ans_reader", "ans_reader")):
+        rows[name]["launches_parallel"], rows[name]["parallel_path"] = \
+            parallel[counter]
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

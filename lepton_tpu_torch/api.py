@@ -220,8 +220,25 @@ def _request_error(i: int, e: Exception) -> LeptonError:
         f"request {i}: {type(e).__name__}: {e}")
 
 
+def _timed_decode(inputs: dict, template, dev: torch.device):
+    """(coef, err, ms) of one decode_lanes launch; ms by CUDA events on the
+    card, the host clock on the CPU."""
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        coef, err = vpx_decoder.decode_lanes(**inputs, template=template)
+        end.record()
+        end.synchronize()
+        return coef, err, start.elapsed_time(end)
+    t = time.perf_counter()
+    coef, err = vpx_decoder.decode_lanes(**inputs, template=template)
+    return coef, err, (time.perf_counter() - t) * 1e3
+
+
 def batch_decompress_device(leps, device=None, stats=None,
-                            per_request: bool = False) -> list:
+                            per_request: bool = False, mesh=None,
+                            even_shares: bool = True) -> list:
     """Decode many .lep containers on one card: the requests are grouped
     by coder (rANS lanes for container v3, VPX lanes for v1 and v2, as
     lepton_tpu.api.batch_decompress_tpu groups them, :496-536), and every
@@ -241,10 +258,22 @@ def batch_decompress_device(leps, device=None, stats=None,
     its own (:497-535); the caller decides where such a request goes
     (serve.py counts it and routes it to the host codec).
 
+    mesh: a parallel.mesh.Mesh; each coder's lanes are split evenly over
+    the devices of its 'seg' axis (one launch a device, each of a
+    contiguous share of the lanes), and the shares' planes merged on
+    `device` (parallel.mesh.decode_shares).  A lane count that the axis
+    does not divide raises ValueError, where decode_segments_tpu fails its
+    assert (vpx_decode.py:898).  even_shares=False (the card route of
+    parallel.mesh.batch_decompress) takes any lane count: the shares are
+    then as near equal as may be, over at most as many devices as there
+    are lanes.
+
     stats: optional dict that receives the stage times and counts: read_s
-    (container read and demux), plan_s (lane plans and uploads),
-    decoder_ms (CUDA events on the card, both launches), vpx_decoder_ms
-    and ans_decoder_ms (each launch), d2h_s, recode_s, lanes,
+    (container read and demux), plan_s (lane plans and uploads; with a
+    mesh, the plans alone), decoder_ms (CUDA events on the card, both
+    coders' launches; with a mesh, each coder's longest share), vpx_decoder_ms
+    and ans_decoder_ms (each launch; with a mesh, a list of each share's
+    launch), merge_s (with a mesh), d2h_s, recode_s, lanes,
     max_lane_blocks."""
     stats = {} if stats is None else stats
     dev = _device(device)
@@ -265,39 +294,39 @@ def batch_decompress_device(leps, device=None, stats=None,
     stats["read_s"] = time.perf_counter() - t
     tpl = _model_template_packed()
     if tpl is not None:
-        tpl = arena_from_template(tpl).to(dev)
+        tpl = arena_from_template(tpl)
     for key in ("plan_s", "decoder_ms", "d2h_s", "lanes", "max_lane_blocks"):
         stats[key] = 0
+    if mesh is not None:
+        stats["merge_s"] = 0
     planes = [None] * len(reqs)
     for coder, members in groups.items():
         t = time.perf_counter()
         plan = vpx_decoder.plan_decode([reqs[i][0] for i in members], coder)
-        inputs = plan.to(dev)
-        batch_encode._sync(dev)
+        if mesh is None:
+            inputs = plan.to(dev)
+            batch_encode._sync(dev)
         stats["plan_s"] += time.perf_counter() - t
         stats["lanes"] += len(plan.lane_request)
         stats["max_lane_blocks"] = max(stats["max_lane_blocks"], int(
             np.bincount(np.repeat(np.arange(len(plan.lanes)),
                                   plan.lanes[:, 1]),
                         weights=plan.rows[:, 2], minlength=1).max()))
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            coef, err = vpx_decoder.decode_lanes(**inputs, template=tpl)
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end)
+        if mesh is None:
+            coef, err, ms = _timed_decode(
+                inputs, None if tpl is None else tpl.to(dev), dev)
+            del inputs
+            stats["decoder_ms"] += ms
         else:
-            t = time.perf_counter()
-            coef, err = vpx_decoder.decode_lanes(**inputs, template=tpl)
-            ms = (time.perf_counter() - t) * 1e3
+            from .parallel.mesh import decode_shares
+            coef, err, ms, merge_s = decode_shares(plan, mesh, tpl, dev,
+                                                   even_shares)
+            stats["decoder_ms"] += max(ms)
+            stats["merge_s"] += merge_s
         stats[f"{coder}_decoder_ms"] = ms
-        stats["decoder_ms"] += ms
         t = time.perf_counter()
         coef, err = coef.cpu().numpy(), err.cpu().numpy()
         stats["d2h_s"] += time.perf_counter() - t
-        del inputs
         for i, res in zip(members, vpx_decoder.split_planes(plan, coef,
                                                             err != 0)):
             planes[i] = res
@@ -319,7 +348,10 @@ def batch_decompress_device(leps, device=None, stats=None,
     return out
 
 
-def decompress_device(lep_data: bytes, device=None) -> bytes:
+def decompress_device(lep_data: bytes, device=None, mesh=None) -> bytes:
     """Decode one .lep on the card: the batch pipeline with a one-request
-    batch.  Bit-exact with the host decompress and decompress_tpu."""
-    return batch_decompress_device([lep_data], device)[0]
+    batch.  Bit-exact with the host decompress and decompress_tpu.  mesh:
+    the lanes split over the devices of its 'seg' axis, as
+    decompress_tpu(mesh=) splits them (lepton_tpu/api.py:539-592); see
+    batch_decompress_device."""
+    return batch_decompress_device([lep_data], device, mesh=mesh)[0]

@@ -189,7 +189,7 @@ def ans_walk(probs: torch.Tensor, bit: torch.Tensor, nsyms: torch.Tensor):
                                   nsyms.data_ptr(), table.data_ptr(),
                                   out.data_ptr(), c, nwords.data_ptr(),
                                   stream)
-        ans_walk.launches += 1
+        cuda_build.count_launch(ans_walk)
         if err:
             raise RuntimeError("ans_coder launch failed: "
                                + lib.ans_walk_error_string(err).decode())

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import time
 from functools import partial
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -46,8 +46,10 @@ BLOCK_BUDGET = 1 << 15
 STOP_BITS = 32
 
 def _sync(dev: torch.device) -> None:
+    """Wait for the work queued on the current stream of dev (the calling
+    thread's own stream, where a mesh gives it one)."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
 
 
 def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
@@ -80,31 +82,66 @@ def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
     return torch.cat(parts_i), torch.cat(parts_b), torch.cat(counts)
 
 
-def assemble_lanes(images, device="cuda", stats=None, framed: bool = True):
-    """Stages 1-5: the symbol lanes of a batch.
+def _ranges(segment_range, plans) -> list:
+    """Each image's (lo, hi) of segments to code: all of them for None, or
+    the list's pair, one an image."""
+    if segment_range is None:
+        return [(0, len(plan)) for plan in plans]
+    if len(segment_range) != len(plans):
+        raise ValueError(f"{len(segment_range)} segment ranges for "
+                         f"{len(plans)} images")
+    out = []
+    for d, ((lo, hi), plan) in enumerate(zip(segment_range, plans)):
+        if not 0 <= lo <= hi <= len(plan):
+            raise ValueError(f"image {d}: segment range ({lo}, {hi}) outside "
+                             f"its {len(plan)} segments")
+        out.append((int(lo), int(hi)))
+    return out
+
+
+class Symbols(NamedTuple):
+    """A batch's live symbols, plane after plane (stages 1-4), on one
+    device; lanes() assembles any of their segments."""
+    idx: torch.Tensor       # int32 [N]: every symbolized plane's symbols
+    bit: torch.Tensor       # uint8 [N]
+    row_counts: np.ndarray  # symbols of each row of each symbolized plane
+    row_off: np.ndarray     # int64: where each row's symbols start in idx
+    first_row: np.ndarray   # where each plane's row 0 is in row_counts
+    plane_base: dict        # (image, component) -> plane number
+    plans: list             # each image's plan_rows
+    ranges: list            # each image's (lo, hi) of segments to code
+
+    def to(self, device) -> "Symbols":
+        return self._replace(idx=self.idx.to(device), bit=self.bit.to(device))
+
+
+def symbolize_images(images, device="cuda", stats=None,
+                     segment_range=None) -> Symbols:
+    """Stages 1-4: the live symbols of a batch, on `device`.
 
     images: list of dicts with keys planes (int16 [H, W, 64] numpy),
     color_tables, mcuv, max_coded_heights, component_sizes, splits_y,
-    color_index (optional).  framed: VPX lanes (the marker bit before the
-    segment's symbols, the 32 stop bits after); False gives the unframed
-    lanes of rANS.  Returns (idx int32 [S, L], bit uint8 [S, L], owners)
-    on the device, where lane s codes segment owners[s][1] of image
-    owners[s][0], PAD after its symbols.  stats: optional dict that
-    receives symbolize_s, assemble_s, lanes, symbols and
-    max_lane_symbols."""
+    color_index (optional).  segment_range: None for every segment of
+    every image, or a list of (lo, hi) pairs, one an image: the segments
+    that lanes() codes by default, as symbolize_image_device(segment_range=)
+    in lepton_tpu/kernels/encode_pipeline.py (:276-390) restricts them for
+    one process's share.  An image with segments to code is symbolized
+    whole, as its top-row masks depend on every split; one without is not
+    symbolized.  stats: optional dict that receives symbolize_s."""
     dev = torch.device(device)
     stats = {} if stats is None else stats
     t = time.perf_counter()
     sym_i, sym_b, counts, plane_base = [], [], [], {}
-    base = 0
-    plans = []
-    for d, im in enumerate(images):
+    plans = [plan_rows([p.shape[0] for p in im["planes"]], im["mcuv"],
+                       im["max_coded_heights"], im["splits_y"])
+             for im in images]
+    ranges = _ranges(segment_range, plans)
+    for d, (im, plan) in enumerate(zip(images, plans)):
+        if ranges[d][0] == ranges[d][1]:
+            continue                # no lane of this image: nothing to code
         ncomp = len(im["planes"])
         cix = im.get("color_index")
         heights = [p.shape[0] for p in im["planes"]]
-        plan = plan_rows(heights, im["mcuv"], im["max_coded_heights"],
-                         im["splits_y"])
-        plans.append(plan)
         tops = segment_top_rows(plan, ncomp)
         for c in range(ncomp):
             rha = np.ones(heights[c], dtype=bool)
@@ -124,20 +161,42 @@ def assemble_lanes(images, device="cuda", stats=None, framed: bool = True):
     row_off = np.zeros(len(row_counts) + 1, np.int64)
     np.cumsum(row_counts, out=row_off[1:])
     first_row = np.cumsum([0] + [len(n) for n in counts])
-    sym_i = torch.cat(sym_i) if sym_i else torch.zeros(0, dtype=torch.int32)
-    sym_b = torch.cat(sym_b) if sym_b else torch.zeros(0, dtype=torch.uint8)
+    sym_i = torch.cat(sym_i) if sym_i \
+        else torch.zeros(0, dtype=torch.int32, device=dev)
+    sym_b = torch.cat(sym_b) if sym_b \
+        else torch.zeros(0, dtype=torch.uint8, device=dev)
     _sync(dev)
     stats["symbolize_s"] = time.perf_counter() - t
-    t = time.perf_counter()
+    return Symbols(sym_i, sym_b, row_counts, row_off, first_row, plane_base,
+                   plans, ranges)
 
+
+def lanes(sym: Symbols, framed: bool = True, stats=None,
+          segment_range=None):
+    """Stage 5: the symbol lanes of segments of a batch, on the device of
+    sym.  framed: VPX lanes (the marker bit before the segment's symbols,
+    the 32 stop bits after); False gives the unframed lanes of rANS.
+    segment_range: None for sym.ranges, or a list of (lo, hi) pairs, one
+    an image, each of an image that sym symbolized.  Returns (idx int32
+    [S, L], bit uint8 [S, L], owners), where lane s codes segment
+    owners[s][1] (the image's own segment number) of image owners[s][0],
+    PAD after its symbols.  stats: optional dict that receives
+    assemble_s, lanes, symbols and max_lane_symbols."""
+    dev = sym.idx.device
+    stats = {} if stats is None else stats
+    ranges = sym.ranges if segment_range is None \
+        else _ranges(segment_range, sym.plans)
+    t = time.perf_counter()
     runs, owners = [], []
-    for d, plan in enumerate(plans):
-        for s, rows in enumerate(plan):
+    for d, (plan, (lo, hi)) in enumerate(zip(sym.plans, ranges)):
+        if lo < hi and (d, 0) not in sym.plane_base:
+            raise ValueError(f"image {d} was not symbolized")
+        for s in range(lo, hi):
             lane = []
-            for comp, y in rows:
-                r = first_row[plane_base[d, comp]] + y
-                if row_counts[r]:
-                    lane.append((int(row_off[r]), int(row_counts[r])))
+            for comp, y in plan[s]:
+                r = sym.first_row[sym.plane_base[d, comp]] + y
+                if sym.row_counts[r]:
+                    lane.append((int(sym.row_off[r]), int(sym.row_counts[r])))
             runs.append(lane)
             owners.append((d, s))
     head, tail = (1, STOP_BITS) if framed else (0, 0)
@@ -151,9 +210,9 @@ def assemble_lanes(images, device="cuda", stats=None, framed: bool = True):
             idx[s, 0] = FIXED_PROB                  # marker bit 0
             idx[s, 1 + n:lengths[s]] = FIXED_PROB   # stop bits 0
         if lane:
-            idx[s, head:head + n] = torch.cat([sym_i[a:a + k]
+            idx[s, head:head + n] = torch.cat([sym.idx[a:a + k]
                                                for a, k in lane])
-            bit[s, head:head + n] = torch.cat([sym_b[a:a + k]
+            bit[s, head:head + n] = torch.cat([sym.bit[a:a + k]
                                                for a, k in lane])
     _sync(dev)
     stats["assemble_s"] = time.perf_counter() - t
@@ -163,28 +222,49 @@ def assemble_lanes(images, device="cuda", stats=None, framed: bool = True):
     return idx, bit, owners
 
 
+def assemble_lanes(images, device="cuda", stats=None, framed: bool = True,
+                   segment_range=None):
+    """Stages 1-5: the symbol lanes of a batch, symbolize_images then
+    lanes (which say what the arguments, the result and stats hold)."""
+    return lanes(symbolize_images(images, device, stats, segment_range),
+                 framed, stats)
+
+
 def encode_images_device(images, version: int = 1, template=None,
-                         device="cuda", stats=None) -> List[List[bytes]]:
+                         device="cuda", stats=None,
+                         segment_range=None) -> List[List[bytes]]:
     """Batch-encode many images on one device (the contract of
     lepton_tpu.kernels.batch_encode.encode_images_device): returns
     per-image lists of per-segment stream bytes, byte-identical to the
-    host coder.
+    host coder.  symbolize_images then encode_symbols; segment_range as
+    symbolize_images takes it."""
+    return encode_symbols(
+        symbolize_images(images, device, stats, segment_range), version,
+        template, stats)
+
+
+def encode_symbols(sym: Symbols, version: int = 1, template=None,
+                   stats=None, segment_range=None) -> List[List[bytes]]:
+    """Stages 5-6 on the device of sym: lanes(sym, segment_range=) coded.
+    Returns each image's list of the streams of its segments lo..hi-1, in
+    segment order; a call with no lane launches nothing.
 
     version: 1 or 2 (VPX streams; the version only selects the container
     header compression) or 3 (rANS streams).  template: optional packed
     uint32 [ARENA_SIZE] trained-model start state
     (lepton_tpu.api._model_template_packed layout) for every lane.  stats:
-    optional dict that receives the stage seconds and counts of
-    assemble_lanes, the whole coder's time (coder_ms for VPX lanes,
-    ans_coder_ms for rANS lanes; CUDA events on the card), on the card its
-    stages' (sort_ms, probs_ms, walk_ms) and longest_run, and
-    finalize_s."""
+    optional dict that receives the stage seconds and counts of lanes(),
+    the whole coder's time (coder_ms for VPX lanes, ans_coder_ms for rANS
+    lanes; CUDA events on the card), on the card its stages' (sort_ms,
+    probs_ms, walk_ms) and longest_run, and finalize_s."""
     if version not in (1, 2, 3):
         raise ValueError(f"no version {version} lanes")
     stats = {} if stats is None else stats
-    dev = torch.device(device)
+    dev = sym.idx.device
     ans = version == 3
-    idx, bit, owners = assemble_lanes(images, dev, stats, framed=not ans)
+    idx, bit, owners = lanes(sym, not ans, stats, segment_range)
+    if not owners:
+        return [[] for _ in sym.plans]
     tpl = None if template is None else arena_from_template(template).to(dev)
     if ans:
         # every symbol of an unframed lane is a branch; PAD follows them
@@ -208,7 +288,7 @@ def encode_images_device(images, version: int = 1, template=None,
     del idx, bit
     t = time.perf_counter()
     streams = finalize_ans(out, nout) if ans else finalize(out, nout)
-    result = [[] for _ in images]
+    result = [[] for _ in sym.plans]
     for (d, _), st in zip(owners, streams):
         result[d].append(st)
     stats["finalize_s"] = time.perf_counter() - t

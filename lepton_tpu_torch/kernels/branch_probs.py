@@ -255,7 +255,7 @@ def run_heads(keys: torch.Tensor, shift: int) -> torch.Tensor:
     nheads = torch.zeros(1, dtype=torch.int64, device=keys.device)
     err = lib.run_heads_launch(keys.data_ptr(), n, shift, heads.data_ptr(),
                                nheads.data_ptr(), stream)
-    run_heads.launches += 1
+    cuda_build.count_launch(run_heads)
     _raise_on(lib, err)
     return heads[:int(nheads)]
 
@@ -301,7 +301,7 @@ def walk_runs(keys: torch.Tensor, shift: int, heads: torch.Tensor, shape,
         ARENA_SIZE, L, None if template is None else template.data_ptr(),
         int(rule == "adv"), probs.data_ptr(), zero.data_ptr(),
         longest.data_ptr(), stream)
-    walk_runs.launches += 1
+    cuda_build.count_launch(walk_runs)
     _raise_on(lib, err)
     return probs, zero != 0, int(longest)
 

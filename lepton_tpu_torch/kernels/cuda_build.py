@@ -28,6 +28,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas's report (registers, shared memory, spills) of each build
 ptxas_report: Dict[str, str] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def source(name: str) -> str:
@@ -95,3 +96,11 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             _libs[name] = ctypes.CDLL(so_path(name))
         return _libs[name]
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to a kernel wrapper's launch counter (wrapper.<attr>).  The
+    mesh routes (parallel/mesh.py) launch from one thread a device, so the
+    add holds a lock."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)

@@ -138,7 +138,7 @@ def vpx_walk(idx: torch.Tensor, bit: torch.Tensor, probs: torch.Tensor):
         err = lib.vpx_walk_launch(idx.data_ptr(), bit.data_ptr(),
                                   probs.data_ptr(), S, L, out.data_ptr(), c,
                                   nbytes.data_ptr(), stream)
-        vpx_walk.launches += 1
+        cuda_build.count_launch(vpx_walk)
         if err:
             raise RuntimeError("vpx_coder launch failed: "
                                + lib.vpx_walk_error_string(err).decode())

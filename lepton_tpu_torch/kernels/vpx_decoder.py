@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -117,6 +117,42 @@ class DecodePlan:
             tables=torch.as_tensor(self.tables, device=dev),
             ring_width=self.ring_width, ring_comps=self.ring_comps,
             n_blocks=self.n_blocks, coder=self.coder)
+
+    def _row_span(self, lo: int, hi: int) -> tuple:
+        """The rows of lanes lo..hi-1: (first, past the last)."""
+        if lo >= hi:
+            return 0, 0
+        return (int(self.lanes[lo, 0]),
+                int(self.lanes[hi - 1, 0] + self.lanes[hi - 1, 1]))
+
+    def share(self, lo: int, hi: int) -> "DecodePlan":
+        """Lanes lo..hi-1 as a plan of their own, for one device of a
+        lane-sharded decode (the shard_map over the 'seg' axis of
+        lepton_tpu/kernels/vpx_decode.py:883-917): the same planes, tables
+        and n_blocks, only those lanes' streams and rows.  A lane writes
+        only the blocks of its own rows, so the share's launch fills its
+        rows of a zeroed [n_blocks, 64], and merge_shares puts the shares
+        back together."""
+        if not 0 <= lo <= hi <= len(self.lanes):
+            raise ValueError(f"lanes ({lo}, {hi}) outside the plan's "
+                             f"{len(self.lanes)}")
+        r0, r1 = self._row_span(lo, hi)
+        lanes = self.lanes[lo:hi].copy()
+        lanes[:, 0] -= r0
+        return replace(self, data=self.data[lo:hi], dlen=self.dlen[lo:hi],
+                       lanes=lanes, rows=self.rows[r0:r1],
+                       lane_request=self.lane_request[lo:hi])
+
+    def owned_blocks(self, lo: int, hi: int) -> np.ndarray:
+        """int64 indices of the blocks that lanes lo..hi-1 write: every
+        block of each of their rows that decodes (a row cut by early EOF
+        decodes its first `width` blocks; the rest stay zero)."""
+        r0, r1 = self._row_span(lo, hi)
+        width = self.rows[r0:r1, 2].astype(np.int64)
+        start = self.rows[r0:r1, 6].astype(np.int64)
+        before = np.cumsum(width) - width
+        return (np.repeat(start - before, width)
+                + np.arange(int(width.sum()), dtype=np.int64))
 
 
 def _ans_words(stream: bytes) -> np.ndarray:
@@ -212,6 +248,27 @@ def split_planes(plan: DecodePlan, coef, err) -> list:
         lo, hi = np.flatnonzero(lane_request == ri)[[0, -1]].tolist()
         out.append((planes, err[lo:hi + 1]))
     return out
+
+
+def merge_shares(plan: DecodePlan, shares, device):
+    """The decode of the whole plan from its lane shares: shares is a list
+    of (lo, hi, coef, err), one per plan.share(lo, hi) launch, in lane
+    order and covering every lane.  Each block is taken from the share
+    whose lanes own its row (plan.owned_blocks), never by its value: an
+    all-zero block is a legal decode.  err is concatenated in lane order.
+    Returns (coef int16 [n_blocks, 64], err int32 [S]) on `device`, as
+    decode_lanes returns them for the whole plan."""
+    dev = torch.device(device)
+    if [lo for lo, *_ in shares] != [0] + [hi for _, hi, *_ in shares[:-1]] \
+            or (shares[-1][1] if shares else 0) != len(plan.lanes):
+        raise ValueError("lane shares must cover the plan's lanes in order")
+    coef = torch.zeros((plan.n_blocks, 64), dtype=torch.int16, device=dev)
+    for lo, hi, c, _ in shares:
+        blocks = torch.as_tensor(plan.owned_blocks(lo, hi))
+        coef[blocks.to(dev)] = c[blocks.to(c.device)].to(dev)
+    err = torch.cat([e.to(dev) for *_, e in shares]) if shares \
+        else torch.zeros(0, dtype=torch.int32, device=dev)
+    return coef, err
 
 
 def cache_slots() -> int:
@@ -395,9 +452,9 @@ def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
         counts.data_ptr(), CODERS[coder],
         torch.cuda.current_stream(dev).cuda_stream)
     if coder == "ans":
-        decode_lanes.ans_launches += 1
+        cuda_build.count_launch(decode_lanes, "ans_launches")
     else:
-        decode_lanes.launches += 1
+        cuda_build.count_launch(decode_lanes)
     decode_lanes.cache_counts = counts
     if rc:
         raise RuntimeError("vpx_decoder launch failed: "

@@ -540,3 +540,63 @@ def test_serve_wave_cuda_equals_cpu(cuda):
     assert waves["cuda"]["launches"] == dict(
         run_heads=1, walk_runs=1, vpx_walk=1, ans_walk=0, vpx_reader=1,
         ans_reader=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 3])
+def test_mesh_decode_equals_unsplit(cuda, version):
+    """A 4-segment file decoded over cuda x 2 (one reader launch a share,
+    each on a thread and stream of its own): the merged planes and flags
+    equal the unsplit launch's, and the JPEG comes back."""
+    from lepton_tpu_torch.parallel import mesh as pmesh
+    jpeg, lep = chip_smoke.small_lep(61, 96, 64, 85, 4, version=version)
+    coder = "ans" if version == 3 else "vpx"
+    plan = vpx_decoder.plan_decode([api._decode_request(lep)[0]], coder)
+    whole = vpx_decoder.decode_lanes(**plan.to(cuda))
+    seg = pmesh.Mesh([cuda, cuda], ("seg",))
+    dl = vpx_decoder.decode_lanes
+    before = dl.launches + dl.ans_launches
+    coef, err, ms, _ = pmesh.decode_shares(plan, seg, None, cuda)
+    assert dl.launches + dl.ans_launches - before == 2 and len(ms) == 2
+    assert torch.equal(coef, whole[0]) and torch.equal(err, whole[1])
+    assert api.decompress_device(lep, mesh=seg) == jpeg
+    for n in (2, 3):        # 4 lanes over 3 devices: uneven shares
+        assert pmesh.batch_decompress([lep], mesh=pmesh.Mesh(
+            np.array([cuda] * n, dtype=object).reshape(1, n),
+            ("data", "seg"))) == [jpeg]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 3])
+def test_segment_range_cuda_equals_cpu(cuda, version):
+    """Segments 1..2 of a 4-segment image on the card: the streams of its
+    plain version, and of the whole call's segments 1 and 2."""
+    from lepton_tpu_torch.kernels import batch_encode
+    _, info, dec = api._parse(chip_smoke.make_photo(62, 64, 64))
+    desc = api._describe(info, dec, dec.handoffs[:1])
+    desc["splits_y"] = [0, 2, 4, 6]
+    got = {dev: batch_encode.encode_images_device(
+        [desc], version, device=dev, segment_range=[(1, 3)])
+        for dev in (cuda, "cpu")}
+    assert got[cuda] == got["cpu"]
+    whole = batch_encode.encode_images_device([desc], version, device=cuda)
+    assert got[cuda] == [whole[0][1:3]]
+
+
+@pytest.mark.cuda
+def test_two_process_encode_on_one_card(cuda, tmp_path):
+    """distributed_compress in two processes that share the card (each
+    rank's coder kernels launched once on its 2 lanes) writes the bytes
+    of the one-process call, and they decode back."""
+    from lepton_tpu_torch.parallel import multihost
+    jpeg = chip_smoke.make_photo(63, 96, 64)
+    world1 = multihost.distributed_compress(jpeg, num_segments=4)
+    assert world1 == multihost.distributed_compress(jpeg, num_segments=4,
+                                                    engine="host")
+    ranks = chip_smoke.run_ranks(jpeg, 4, "default", str(tmp_path),
+                                 timeout=300)
+    for lep, st in ranks:
+        assert lep == world1
+        assert st["lanes"] == 2
+        assert st["launches"] == dict(run_heads=1, walk_runs=1, vpx_walk=1)
+    assert api.decompress_device(world1) == jpeg
