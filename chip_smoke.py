@@ -116,6 +116,19 @@ Phases (any failure exits non-zero, before the result line):
      by two processes on the card (run_ranks: gloo on 127.0.0.1, 8 lanes
      and one launch of each coder kernel a rank), both ranks' bytes equal
      to the world-1 call with either engine and decoding to the photo.
+ 16. the host symbolizer and the host codec's Python route: phase 4's four
+     photos through compress_device(symbolizer="native") as v1 and as v3
+     (symbols from the C library, coded on the card: one launch of
+     run_heads, walk_runs and the walk a call, each .lep equal to phase
+     4's or phase 9's), with the host symbolize_s, the coder's ms and the
+     wall beside the card symbolizer's; on a 256x192 photo in 2 segments,
+     the port's pure-Python encode_segment (VPX and ANS) equal to the card
+     coder's streams, host.compress on the Python route equal to the
+     card's .lep and decoded back by decompress_device, and decode_segment
+     of the card's streams equal to the parse's planes; a seeded round
+     trip of the QM coder (coder/jpeg_arith.py).  Phases 1 to 15 must not
+     have taken the Python segment codec, in this process or in the
+     server's waves.
 It prints stage times, sizes, rates and peak memory, then the card's name
 and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -1150,6 +1163,10 @@ def _phase_serve(dev, blobs, leps, leps3, tmp: str) -> dict:
         log(f"[14] wave C: a 160x96 JPEG over the zlib port, served by the "
             f"card (launches {c['launches']}), host routes unchanged; "
             f"client wall {wall_c:.3f} s")
+        python_codec = sum(w["python_codec"] for w in [a] + waves_b + [c])
+        if python_codec:
+            fail(f"[14] the server's waves took the Python segment codec "
+                 f"{python_codec} times")
         kids = srv.children()
         if kids:
             fail(f"[14] the server left children {kids}")
@@ -1528,6 +1545,157 @@ def phase_parallel(dev, blobs, leps, leps3, descs) -> dict:
         ans_reader="phase 15: the four v3 .lep over cuda:0 x2 and x4, and "
                    "one over (1, 5) (5)")
     return {k: (launched[k], paths[k]) for k in paths}
+
+
+SMALL_W, SMALL_H, SMALL_SEGMENTS = 256, 192, 2   # phase 16 (b)
+QM_BITS, QM_CONTEXTS = 20000, 64                 # phase 16 (c)
+
+
+@contextlib.contextmanager
+def python_segment_codec():
+    """The host codec's compress and decompress take the pure-Python
+    segment codec inside, as where the C library cannot be built."""
+    from lepton_tpu_torch import _native
+    saved = _native.available
+    _native.available = lambda: False
+    try:
+        yield
+    finally:
+        _native.available = saved
+
+
+def phase_native_symbolizer(dev, blobs, leps, leps3, prof, prof3) -> dict:
+    """Phase 16: (a) compress_device(symbolizer="native") on phase 4's four
+    photos, v1 and v3, each call one launch of run_heads, walk_runs and
+    the walk, each .lep equal to phase 4's or phase 9's; (b) the port's
+    pure-Python segment codec against the card on a small photo; (c) a
+    seeded round trip of the QM coder.  Returns {counter: (launches,
+    path)} of (a)."""
+    import torch
+    from lepton_tpu_torch import api, host
+    from lepton_tpu_torch.codec import driver
+    from lepton_tpu_torch.coder import jpeg_arith
+    from lepton_tpu_torch.container.format import read_container
+    from lepton_tpu_torch.container.handoff import (choose_num_threads,
+                                                    select_splits)
+    from lepton_tpu_torch.container.mux import MuxReader
+    from lepton_tpu_torch.kernels import batch_encode
+    t_phase = time.perf_counter()
+    launched = dict.fromkeys(launch_counts(), 0)
+
+    # (a) the host symbolizer, the card's coder, at full width
+    for version, want, walk, ms_key, base in (
+            (1, leps, "vpx_walk", "coder_ms", prof),
+            (3, leps3, "ans_walk", "ans_coder_ms", prof3)):
+        phase = 4 if version == 1 else 9
+        for i, b in enumerate(blobs):
+            reset_launches()
+            st = {}
+            t = time.perf_counter()
+            lep = api.compress_device(b, num_segments=16, device=dev,
+                                      version=version, symbolizer="native",
+                                      stats=st)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t
+            counts = expect_launches(
+                f"[16] native symbolizer, v{version}, photo {i}",
+                run_heads=1, walk_runs=1, **{walk: 1})
+            for k, v in counts.items():
+                launched[k] += v
+            if lep != want[i]:
+                fail(f"[16] v{version} photo {i}: the native symbolizer's "
+                     f".lep differs from phase {phase}'s")
+            log(f"[16] v{version} photo {i}: symbolizer=\"native\" .lep "
+                f"equal to phase {phase}'s; host symbolize_s "
+                f"{st['symbolize_s']:.3f}, assembly {st['assemble_s']:.3f}, "
+                f"{ms_key} {st[ms_key]:.2f} {stage_split(st)}, "
+                f"{st['lanes']} lanes, longest {st['max_lane_symbols']} "
+                f"symbols; wall {wall:.3f} s (parse {st['parse_s']:.3f}); "
+                f"phase {phase}'s card symbolize_s for all four photos "
+                f"{base['symbolize_s']:.3f}")
+
+    # (b) the Python segment codec against the card, a small photo
+    jpeg = make_photo(SEED + 160, SMALL_W, SMALL_H)
+    parsed, info, dec = api._parse(jpeg)
+    hs = dec.handoffs
+    nt = choose_num_threads(len(hs), hs[-1].segment_size
+                            - hs[0].segment_size, SMALL_SEGMENTS,
+                            SMALL_SEGMENTS)
+    splits = select_splits(hs, nt)
+    if len(splits) != SMALL_SEGMENTS:
+        fail(f"[16] {len(splits)} segments, not {SMALL_SEGMENTS}")
+    desc = api._describe(info, dec, splits)
+    bounds = desc["splits_y"] + [info.cmpnfo[0].bcv]
+    jobs = [(bounds[k], bounds[k + 1], k == len(splits) - 1)
+            for k in range(len(splits))]
+    mh, cs = host._truncation_geometry(info, dec)
+    image = host._python_image(info, dec.planes, mh, cs)
+    card = {}
+    for version in (1, 3):
+        with uncounted():
+            card[version] = batch_encode.encode_images_device(
+                [desc], version, device=dev)[0]
+        t = time.perf_counter()
+        py = [driver.encode_segment(image, *j, ans=version == 3)
+              for j in jobs]
+        py_s = time.perf_counter() - t
+        if py != card[version]:
+            fail(f"[16] v{version}: the Python encode_segment's streams "
+                 "differ from the card coder's")
+        log(f"[16] {SMALL_W}x{SMALL_H} in {SMALL_SEGMENTS} segments, "
+            f"{'ANS' if version == 3 else 'VPX'}: the Python "
+            f"encode_segment's {sum(map(len, py))} stream bytes equal the "
+            f"card coder's ({py_s:.2f} s in Python)")
+    card_lep = api._container(parsed, dec, splits, nt, card[1], 1)
+    python_before = host.SEGMENT_CODEC_ROUTES["python"]
+    t = time.perf_counter()
+    with python_segment_codec():
+        py_lep = host.compress(jpeg, max_threads=SMALL_SEGMENTS,
+                               min_threads=SMALL_SEGMENTS)
+    py_s = time.perf_counter() - t
+    if host.SEGMENT_CODEC_ROUTES["python"] != python_before + 1:
+        fail("[16] host.compress did not take the Python route")
+    if py_lep != card_lep:
+        fail("[16] host.compress on the Python route differs from the "
+             "card's .lep")
+    if api.decompress_device(py_lep, device=dev) != jpeg:
+        fail("[16] decompress_device does not give the photo back from "
+             "the Python route's .lep")
+    hdr, mux_region = read_container(card_lep)
+    demux = MuxReader(mux_region)
+    planes = [np.zeros_like(p) for p in dec.planes]
+    back = host._python_image(info, planes, mh, cs)
+    t = time.perf_counter()
+    for k, j in enumerate(jobs):
+        driver.decode_segment(back, bytes(demux.buffers[k]), *j)
+    dec_s = time.perf_counter() - t
+    if not all(np.array_equal(a, b) for a, b in zip(planes, dec.planes)):
+        fail("[16] decode_segment of the card's streams differs from the "
+             "parse's planes")
+    log(f"[16] host.compress on the Python route ({py_s:.2f} s): the "
+        f"card's .lep byte for byte, decompress_device gives the photo "
+        f"back; decode_segment of the card's streams gives the parse's "
+        f"planes ({dec_s:.2f} s)")
+
+    # (c) the QM coder, host only
+    rng = random.Random(SEED + 161)
+    bits = [int(rng.random() < 0.2) for _ in range(QM_BITS)]
+    ctxs = [rng.randrange(QM_CONTEXTS) for _ in range(QM_BITS)]
+    w = jpeg_arith.JpegBoolWriter()
+    st = jpeg_arith.initial_states(QM_CONTEXTS)
+    for b, c in zip(bits, ctxs):
+        w.put_bit(b, st, c)
+    stream = w.finish()
+    r = jpeg_arith.JpegBoolReader(stream)
+    st2 = jpeg_arith.initial_states(QM_CONTEXTS)
+    if [r.get_bit(st2, c) for c in ctxs] != bits or st2 != st:
+        fail("[16] the QM coder's reader does not give its bits back")
+    log(f"[16] QM coder: {QM_BITS} bits over {QM_CONTEXTS} contexts in "
+        f"{len(stream)} bytes, read back; phase 16 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    path = ("phase 16: compress_device(symbolizer=\"native\") of the four "
+            "12 MP photos at 16 segments, v1 and v3, one launch each a call")
+    return {k: (v, path) for k, v in launched.items()}
 
 
 def main() -> None:
@@ -2254,6 +2422,21 @@ def main() -> None:
                           ("ans_reader", "ans_reader")):
         rows[name]["launches_parallel"], rows[name]["parallel_path"] = \
             parallel[counter]
+    # no card path of phases 1 to 15 took the Python segment codec
+    from lepton_tpu_torch import host
+    if host.SEGMENT_CODEC_ROUTES["python"]:
+        fail(f"phases 1 to 15 took the Python segment codec: "
+             f"{host.SEGMENT_CODEC_ROUTES}")
+    log(f"[16] segment codec routes of phases 1 to 15 in this process: "
+        f"{host.SEGMENT_CODEC_ROUTES}")
+    # ---- phase 16: the host symbolizer on the card, the Python codec
+    native = phase_native_symbolizer(dev, blobs, leps, leps3, prof, prof3)
+    for name, counter in (("vpx_coder", "vpx_walk"),
+                          ("run_heads", "run_heads"),
+                          ("walk_runs", "walk_runs"),
+                          ("ans_coder", "ans_walk")):
+        (rows[name]["launches_native_symbolizer"],
+         rows[name]["native_symbolizer_path"]) = native[counter]
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -13,7 +13,9 @@ billing; and the declarations of the seccomp jail's entry
 points (leptonc.c:2912-3049), which util/sandbox.py calls.  The library is
 built with gcc at first use into the build/ directory beside the package
 (git ignores it); a library that cannot be built raises NativeUnavailable,
-and nothing falls back to a Python codec.
+and the build is not tried again in this process.  Where it cannot be
+built, the host codec's compress and decompress code segments in Python
+(host.py, codec/driver.py); every other caller raises.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 _SO = os.path.join(BUILD_DIR, "libleptonc_torch.so")
 
 _lib = None
+_failed = None        # the NativeUnavailable of a build that failed
 _lock = threading.Lock()
 
 # -injectsyscall= fault-injection points 2/4: issue a jail-banned syscall
@@ -63,17 +66,20 @@ def _build() -> None:
 
 
 def get_lib():
-    global _lib
+    global _lib, _failed
     if _lib is not None:
         return _lib
     with _lock:
+        if _failed is not None:
+            raise _failed
         if _lib is None:
             if (not os.path.exists(_SO)
                     or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
                 try:
                     _build()
                 except (OSError, NativeUnavailable) as e:
-                    raise NativeUnavailable(f"cannot build leptonc: {e}")
+                    _failed = NativeUnavailable(f"cannot build leptonc: {e}")
+                    raise _failed
             lib = ctypes.CDLL(_SO)
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.lepton_huff_table_size.argtypes = []

@@ -9,7 +9,9 @@ decode of every scan to coefficient planes and handoffs, thread splits,
 then phase A, symbolization and the VPX or ANS coder on the device
 (kernels/batch_encode.py), then the VPX stop-byte rule or the rANS word
 order, the mux and the .lep header on the host.  The output is
-byte-identical to the JAX package's.
+byte-identical to the JAX package's.  compress_device(symbolizer="native")
+symbolizes on the host with the C library instead, as compress_tpu's
+(:1096-1122) does, and codes those symbols with the same kernels.
 
 Decode: port of lepton_tpu.api.decompress_tpu / batch_decompress_tpu
 (:427-589) for mode-Z and mode-X containers of versions 1 to 3.  Pipeline:
@@ -41,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from . import _native
 from . import constants as C
 from .container.format import (ContainerError, LeptonHeader, read_container,
                                write_container)
@@ -48,7 +51,8 @@ from .container.handoff import choose_num_threads, select_splits
 from .container.mux import MuxReader, mux_streams
 # the host codec, re-exported beside the device entry points
 from .host import (LeptonError, _container_end,  # noqa: F401
-                   _handoffs, _model_template_packed, _parse,
+                   _handoffs, _model_template_packed, _native_image,
+                   _parallel_map, _parse,
                    _parse_jpeg_jailed, _reemit, _truncation_geometry,
                    compress, compress_any, decompress, decompress_all,
                    decompress_streaming, generic_compress, pack_model,
@@ -168,13 +172,62 @@ def compress_device(jpeg_data: bytes, num_segments: int = 16,
                     device=None, version: int = 1,
                     allow_progressive: bool = False,
                     allow_four_colors: bool = False,
-                    jailed_parse: bool = False) -> bytes:
-    """Encode one JPEG on the card: the batch pipeline with a one-image
-    batch, as compress_tpu is."""
-    return batch_compress_device(
-        [jpeg_data], num_segments, device, version=version,
-        allow_progressive=allow_progressive,
-        allow_four_colors=allow_four_colors, jailed_parse=jailed_parse)[0]
+                    jailed_parse: bool = False, symbolizer: str = "jax",
+                    stats=None) -> bytes:
+    """Encode one JPEG on the card, as compress_tpu does (:1023-1122).
+
+    symbolizer: "jax" (the default; the name is compress_tpu's) runs the
+    batch pipeline with a one-image batch, symbolizing on the card.
+    "native" symbolizes the segments on the host with the C library
+    (_native.native_symbolize_segment, a thread a segment, as the host
+    codec codes them) and codes the symbols on the card
+    (batch_encode.symbol_lanes, then code_lanes: one launch of each coder
+    kernel); without the library it raises LeptonError, with no Python
+    route.  Both write the same bytes.  stats: optional dict that receives
+    batch_compress_device's keys; on the "native" route parse_s,
+    symbolize_s (the host symbolizer), assemble_s, the coder's keys and
+    mux_s."""
+    if symbolizer not in ("jax", "native"):
+        raise ValueError(f"no symbolizer {symbolizer!r} (jax or native)")
+    if symbolizer == "jax":
+        return batch_compress_device(
+            [jpeg_data], num_segments, device, stats, version=version,
+            allow_progressive=allow_progressive,
+            allow_four_colors=allow_four_colors,
+            jailed_parse=jailed_parse)[0]
+    if version not in (1, 2, 3):
+        raise LeptonError(f"no container version {version}")
+    stats = {} if stats is None else stats
+    dev = _device(device)
+    t = time.perf_counter()
+    parse = _parse_jpeg_jailed if jailed_parse else _parse
+    try:
+        parsed, info, dec = parse(jpeg_data, allow_progressive,
+                                  allow_four_colors)
+        splits, num_threads = _plan(dec, num_segments)
+    except Exception as e:
+        raise request_error(0, e)
+    stats["parse_s"] = time.perf_counter() - t
+    if not _native.available():
+        raise LeptonError("native symbolizer unavailable")
+    t = time.perf_counter()
+    mh, cs = _truncation_geometry(info, dec)
+    img = _native_image(info, dec.planes, mh, cs)
+    bounds = [th.luma_y_start for th in splits] + [info.cmpnfo[0].bcv]
+    # a thread a segment, as the host codec codes them: the C calls drop
+    # the GIL
+    segs = _parallel_map(
+        lambda i: _native.native_symbolize_segment(
+            img, bounds[i], bounds[i + 1], i == len(splits) - 1),
+        range(len(splits)))
+    stats["symbolize_s"] = time.perf_counter() - t
+    idx, bit = batch_encode.symbol_lanes(segs, version != 3, dev, stats)
+    streams = batch_encode.code_lanes(idx, bit, version,
+                                      _model_template_packed(), stats)
+    t = time.perf_counter()
+    out = _container(parsed, dec, splits, num_threads, streams, version)
+    stats["mux_s"] = time.perf_counter() - t
+    return out
 
 
 def _decode_request(lep_data: bytes, i: int = 0):

@@ -36,6 +36,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..coder.ans import ANS_PARITY_TAIL
 from ..model.tables import ARENA_SIZE
 from . import branch_probs as bp
 from . import cuda_build
@@ -44,11 +45,6 @@ from .vpx_coder import FIXED_PROB
 
 RANS64_L = 1 << 31
 NOP_PAIRS = 4
-# The reference's finish copies one word past what its encoder wrote
-# (finish - pptr + 1, ans_bool_writer.hh:108-109), landing on the last nop
-# pair's raw bytes: every v3 encoder appends this tail (copy of
-# lepton_tpu/coder/ans.py ANS_PARITY_TAIL, :25-30).
-ANS_PARITY_TAIL = b"\x00\x80\x00\x80"
 _MASK32 = 0xFFFFFFFF
 _MASK64 = (1 << 64) - 1
 

@@ -14,11 +14,16 @@ stages, in data-flow order:
   5. assemble each lane (one per segment): for VPX the marker bit, the
      segment's rows in plan_rows order, then the 32 stop bits; for rANS
      the rows alone (batch_encode.py:628, :635-649); PAD after;
-  6. code all lanes of the batch: one launch of the probability stage
-     (kernels/branch_probs.py), then one of the VPX coder's walk
-     (kernels/vpx_coder.py) and the stop-byte rule on the host, or one of
-     the ANS coder's walk (kernels/ans_coder.py) and the words reversed on
-     the host.
+  6. code all lanes of the batch (code_lanes): one launch of the
+     probability stage (kernels/branch_probs.py), then one of the VPX
+     coder's walk (kernels/vpx_coder.py) and the stop-byte rule on the
+     host, or one of the ANS coder's walk (kernels/ans_coder.py) and the
+     words reversed on the host.
+
+Stages 1-4 have a host twin: the C library's symbolizer gives each
+segment's symbols on the host (api.compress_device(symbolizer="native"),
+as compress_tpu's does, lepton_tpu/api.py:1096-1122), and symbol_lanes
+frames them into the same lanes for stage 6.
 
 The JAX package's 128-wide tiling, sort-based compactions, pool DP and int8
 coefficient transport answer TPU rules (serialized gathers, 128-lane
@@ -260,11 +265,62 @@ def encode_symbols(sym: Symbols, version: int = 1, template=None,
     if version not in (1, 2, 3):
         raise ValueError(f"no version {version} lanes")
     stats = {} if stats is None else stats
-    dev = sym.idx.device
+    idx, bit, owners = lanes(sym, version != 3, stats, segment_range)
+    result = [[] for _ in sym.plans]
+    for (d, _), st in zip(owners, code_lanes(idx, bit, version, template,
+                                             stats)):
+        result[d].append(st)
+    return result
+
+
+def symbol_lanes(segments, framed: bool = True, device="cuda", stats=None):
+    """Stage 5 from symbols made on the host, a (branch index int32, bit
+    uint8) pair of arrays a segment (_native.native_symbolize_segment):
+    the lanes that lanes() assembles from the device's symbols, one a
+    segment, framed as lanes() frames them.  framed: VPX lanes (the
+    marker bit, the symbols, the 32 stop bits, as
+    lepton_tpu/kernels/vpx_scan.py:119 build_symbol_streams frames them);
+    False gives the unframed lanes of rANS.  Returns (idx int32 [S, L],
+    bit uint8 [S, L]) on `device`, PAD after each lane's symbols.  stats:
+    optional dict that receives assemble_s (host framing and upload),
+    lanes, symbols and max_lane_symbols."""
+    dev = torch.device(device)
+    stats = {} if stats is None else stats
+    t = time.perf_counter()
+    head, tail = (1, STOP_BITS) if framed else (0, 0)
+    lengths = [head + len(i) + tail for i, _ in segments]
+    S, L = len(segments), max(lengths, default=0)
+    idx = np.full((S, L), PAD, dtype=np.int32)
+    bit = np.zeros((S, L), dtype=np.uint8)
+    for s, (i, b) in enumerate(segments):
+        n = len(i)
+        if framed:
+            idx[s, 0] = FIXED_PROB                  # marker bit 0
+            idx[s, 1 + n:lengths[s]] = FIXED_PROB   # stop bits 0
+        idx[s, head:head + n] = i
+        bit[s, head:head + n] = b
+    idx = torch.as_tensor(idx, device=dev)
+    bit = torch.as_tensor(bit, device=dev)
+    _sync(dev)
+    stats["assemble_s"] = time.perf_counter() - t
+    stats["lanes"] = S
+    stats["symbols"] = int(sum(lengths))
+    stats["max_lane_symbols"] = L
+    return idx, bit
+
+
+def code_lanes(idx: torch.Tensor, bit: torch.Tensor, version: int = 1,
+               template=None, stats=None) -> List[bytes]:
+    """Stage 6: the streams of the lanes idx int32 [S, L], bit uint8
+    [S, L] (lanes() or symbol_lanes()), one a lane, coded on their device
+    by the VPX coder (version 1 or 2) or the ANS coder (version 3); no
+    lane, no launch.  version, template and stats as encode_symbols takes
+    them."""
+    stats = {} if stats is None else stats
+    dev = idx.device
     ans = version == 3
-    idx, bit, owners = lanes(sym, not ans, stats, segment_range)
-    if not owners:
-        return [[] for _ in sym.plans]
+    if not len(idx):
+        return []
     tpl = None if template is None else arena_from_template(template).to(dev)
     if ans:
         # every symbol of an unframed lane is a branch; PAD follows them
@@ -285,11 +341,7 @@ def encode_symbols(sym: Symbols, version: int = 1, template=None,
         out, nout = run()
         ms = (time.perf_counter() - t) * 1e3
     stats["ans_coder_ms" if ans else "coder_ms"] = ms
-    del idx, bit
     t = time.perf_counter()
     streams = finalize_ans(out, nout) if ans else finalize(out, nout)
-    result = [[] for _ in sym.plans]
-    for (d, _), st in zip(owners, streams):
-        result[d].append(st)
     stats["finalize_s"] = time.perf_counter() - t
-    return result
+    return streams

@@ -1,8 +1,9 @@
 """The adaptive probability model: ~720k branches in one flat arena.
 
-Copy of the table layout of lepton_tpu/model/tables.py (struct Model,
-reference src/vp8/model/model.hh:60-156): the same table order, offsets and
-strides, so a branch index means the same branch in both packages.  Adds
+Copy of lepton_tpu/model/tables.py (struct Model, reference
+src/vp8/model/model.hh:60-156): the same table order, offsets and strides,
+so a branch index means the same branch in both packages, and the scalar
+codec's Model with save_model and load_model (:50-93).  Adds
 arena_from_template, the coder kernel's start state.  torch is imported
 only there: the host codec reads ARENA_SIZE and must not load torch.
 """
@@ -42,6 +43,55 @@ TABLE_STRIDES = {
                 np.cumprod((shape[1:] + (1,))[::-1])[::-1])
     for name, shape in TABLE_SHAPES
 }
+
+
+class Model:
+    """Per-segment adaptive model state (each thread-segment owns a copy).
+
+    The arena holds (false_count, true_count) pairs plus the cached
+    probability byte, all reset to the identity (1, 1, 128) at segment start
+    (reference lepton_codec.hh:173-181 reset_thread_model_state), or set to
+    a trained template's bytes (LEPTON_COMPRESSION_MODEL).
+    """
+
+    __slots__ = ("raw", "arena")
+
+    def __init__(self):
+        # bytearray backing enables the fast scalar hot loop; the numpy view
+        # shares the same memory for vectorized ops and serialization.
+        self.raw = bytearray(ARENA_SIZE * 3)
+        self.arena = np.frombuffer(self.raw, dtype=np.uint8).reshape(
+            ARENA_SIZE, 3)
+        self.reset()
+
+    def reset(self):
+        self.arena[:, 0] = 1
+        self.arena[:, 1] = 1
+        self.arena[:, 2] = 128
+
+    def index(self, table: str, *idx: int) -> int:
+        strides = TABLE_STRIDES[table]
+        base = TABLE_OFFSETS[table]
+        for i, s in zip(idx, strides):
+            base += i * s
+        return base
+
+
+def save_model(model: Model, path: str) -> None:
+    """Raw model dump (serialize_model, model.cc:205: struct bytes ==
+    this arena layout)."""
+    with open(path, "wb") as f:
+        f.write(bytes(model.raw))
+
+
+def load_model(model: Model, path: str) -> None:
+    """load_model (model.cc:407): read raw branch bytes back."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) != len(model.raw):
+        raise ValueError("model size mismatch")
+    model.raw[:] = data
+
 
 # one branch of the coder arena: fc | tc << 8 | prob << 16 (int32)
 IDENTITY_BRANCH = 1 | (1 << 8) | (128 << 16)

@@ -24,14 +24,15 @@ from __future__ import annotations
 
 import datetime
 import time
+from functools import partial
 from typing import List
 
 import torch
 import torch.distributed as dist
 
-from .. import api
+from .. import api, host
+from ..codec.driver import encode_segment
 from ..container.handoff import select_splits
-from ..host import _native_image
 from ..jpeg.decoder import decode_scans
 from ..jpeg.imageinfo import image_info_from_header
 from ..jpeg.parser import parse_jpeg
@@ -105,10 +106,14 @@ def distributed_compress(jpeg_data: bytes, num_segments: int = 8,
     template, as the JAX function passes none) on `device`; device=None
     means cuda:<rank mod the CUDA devices>, and without CUDA it raises;
     "cpu" runs the kernels' plain versions.  engine="host" codes it with
-    the C segment coder (_native), which raises NativeUnavailable when the
-    library cannot be built.  stats: optional dict that receives rank,
-    world, lanes (this process's segments), parse_s, the encode's stage
-    stats (device engine), encode_s and gather_s."""
+    the C segment coder (_native), or, where that library cannot be
+    built, with the pure-Python segment codec (codec/driver.py, counted
+    in host.SEGMENT_CODEC_ROUTES), as the JAX function does (:145-157).
+    The device engine and the Python route start every segment from
+    the identity model; the C route from the library's template, which
+    only host.compress and host.decompress set.  stats: optional dict
+    that receives rank, world, lanes (this process's segments), parse_s,
+    the encode's stage stats (device engine), encode_s and gather_s."""
     if engine not in ("device", "host"):
         raise ValueError(f"no {engine!r} engine")
     stats = {} if stats is None else stats
@@ -139,8 +144,12 @@ def distributed_compress(jpeg_data: bytes, num_segments: int = 8,
                 stats=stats, segment_range=[(lo, hi)])[0]
     else:
         mh, cs = api._truncation_geometry(info, dec)
-        native = _native_image(info, dec.planes, mh, cs)
-        local = [native.encode_segment(bounds[i], bounds[i + 1], i == S - 1)
+        if host._segment_codec_is_native():
+            enc = host._native_image(info, dec.planes, mh, cs).encode_segment
+        else:
+            enc = partial(encode_segment,
+                          host._python_image(info, dec.planes, mh, cs))
+        local = [enc(bounds[i], bounds[i + 1], i == S - 1)
                  for i in range(lo, hi)]
     stats["encode_s"] = time.perf_counter() - t
 

@@ -19,8 +19,10 @@ in HOST_ROUTES: a mode-Y container (mode_y), a wave whose batch encode
 raised (encode_batch_failed: every JPEG of that wave), a reply that did
 not verify (verify_failed), a .lep the device decode flagged or could not
 read (decode_failed), and a request of another kind (host_kind: zlepton,
-UJG, unknown).  Each wave's stderr line carries those counts, the wave's
-kernel launches and its stage times.  Only an error that a request causes
+UJG, unknown).  Each wave's stderr line carries those counts, the
+wave's segment-codec calls in this process that took the pure-Python
+route (python_codec: 0 while the C library builds), its kernel launches
+and its stage times.  Only an error that a request causes
 (host.REQUEST_ERRORS) takes a host route.  A card fault (cli.CardFault: a
 kernel that does not launch, a lost device, a wave still running after
 LEPTON_TPU_TIMEOUT_S) stops the server with exit 1, and the clients of the
@@ -51,11 +53,12 @@ def _route(wave: dict, reason: str, n: int = 1) -> None:
 
 def new_wave() -> dict:
     """The per-wave record that _process_tpu_batch fills: request
-    kinds, host routes, JPEG replies verified, kernel launches, and the
-    stats of the two batch calls."""
+    kinds, host routes, segment-codec calls on the Python route
+    (host.SEGMENT_CODEC_ROUTES), JPEG replies verified, kernel launches,
+    and the stats of the two batch calls."""
     return dict(jpeg=0, lep=0, other=0, verified=0,
-                host=dict.fromkeys(ROUTES, 0), launches={}, encode={},
-                decode={}, verify_s=0.0)
+                host=dict.fromkeys(ROUTES, 0), python_codec=0, launches={},
+                encode={}, decode={}, verify_s=0.0)
 
 
 def _handle(conn: socket.socket, opts, zlib_wrap: bool) -> None:
@@ -151,12 +154,13 @@ def _process_tpu_batch(reqs, opts, wave: dict) -> None:
 
     from .api import batch_compress_device, batch_decompress_device
     from .cli import sniff
-    from .host import REQUEST_ERRORS, _roundtrips
+    from .host import REQUEST_ERRORS, SEGMENT_CODEC_ROUTES, _roundtrips
 
     dev = torch.device(opts.get("device", "cuda"))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     before = _launches()
+    python_before = SEGMENT_CODEC_ROUTES["python"]
     jpegs = [r for r in reqs if sniff(r[2]) == "jpeg"]
     leps = [r for r in reqs if sniff(r[2]) == "lepton"]
     others = [r for r in reqs if sniff(r[2]) not in ("jpeg", "lepton")]
@@ -206,6 +210,7 @@ def _process_tpu_batch(reqs, opts, wave: dict) -> None:
         r[3] = _host_fallback(r[2], opts)
     after = _launches()
     wave["launches"] = {k: after[k] - before[k] for k in after}
+    wave["python_codec"] = SEGMENT_CODEC_ROUTES["python"] - python_before
     if dev.type == "cuda":
         wave["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
 

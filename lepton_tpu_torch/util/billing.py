@@ -21,9 +21,8 @@ pure *post-hoc* function of the (branch_index, bit) symbol stream:
 This keeps the production loops uninstrumented -- billing runs only at
 -v2, like the reference's ENABLE_BILLING debug builds.
 
-Copy of lepton_tpu/util/billing.py (214 lines), without its
-bill_symbol_stream, which no caller of the port has; the replay's
-branch transitions come from model/branch.update_branch.
+Copy of lepton_tpu/util/billing.py (:1-214); the replay's branch
+transitions come from model/branch.next_state_lut.
 """
 from __future__ import annotations
 
@@ -32,7 +31,7 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 
 from ..constants import VPX_NORM
-from ..model.branch import update_branch
+from ..model.branch import next_state_lut
 from ..model.tables import TABLE_OFFSETS, TABLE_SHAPES, TABLE_STRIDES
 
 # the reference's category list, in enum order (billing.hh:6-33)
@@ -115,32 +114,12 @@ def categorize(idx: np.ndarray) -> np.ndarray:
     return cat
 
 
-_lut = None
-
-
-def _next_state() -> bytes:
-    """update_branch's transitions as bytes: 3 a ((fc << 8 | tc) << 1 |
-    bit) state, the new (fc, tc, prob)."""
-    global _lut
-    if _lut is None:
-        out = bytearray(256 * 256 * 2 * 3)
-        for fc in range(256):
-            for tc in range(256):
-                for bit in (0, 1):
-                    s = (((fc << 8) | tc) << 1 | bit) * 3
-                    nfc, ntc, prob = update_branch(fc, tc, 0, bool(bit))
-                    out[s:s + 3] = bytes((nfc & 0xFF, ntc & 0xFF,
-                                          prob & 0xFF))
-        _lut = bytes(out)
-    return _lut
-
-
 def replay_shifts(idx: np.ndarray, bits: np.ndarray) -> np.ndarray:
     """Renormalization shift (compressed bits emitted) per symbol: an
     exact replay of vpx_write over the adaptive model recurrence
     (boolwriter.hh:48-118 + branch.hh:82-100), matching what the
     reference attributes via write_bit_bill(bt, true, shift)."""
-    lut = _next_state()
+    lut = next_state_lut().reshape(-1).tobytes()  # [(fc<<8|tc)<<1|bit]*3
     norm = bytes(int(v) for v in VPX_NORM)
     av = bytearray(b"\x01\x01\x80" * max(_END.values()))
     shifts = np.zeros(len(idx), np.int32)
@@ -229,3 +208,10 @@ def print_bill(segments, file=None, header_bytes: int = 0,
                    f"residue {8 * stream_bytes - coder_bits} "
                    f"= per-segment phantom/flush bits)\n")
 
+
+def bill_symbol_stream(idx: np.ndarray) -> Dict[str, int]:
+    """Decision counts per category (uncompressed map only), kept for
+    API compatibility with the r1 billing tool (billing.py:209-214)."""
+    cats = categorize(np.asarray(idx, np.int64))
+    ub = np.bincount(cats, minlength=len(CATEGORIES))
+    return {n: int(ub[i]) for i, n in enumerate(CATEGORIES) if ub[i]}

@@ -600,3 +600,42 @@ def test_two_process_encode_on_one_card(cuda, tmp_path):
         assert st["lanes"] == 2
         assert st["launches"] == dict(run_heads=1, walk_runs=1, vpx_walk=1)
     assert api.decompress_device(world1) == jpeg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 3])
+def test_native_symbolizer_cuda_equals_cpu(cuda, version):
+    """compress_device(symbolizer="native"): symbols from the C library,
+    one launch of each coder kernel on the card, the bytes of its cpu run
+    and of the card's own symbolizer."""
+    from lepton_tpu_torch.kernels import ans_coder
+    jpeg = chip_smoke.make_photo(64, 96, 64)
+    walk = ans_coder.ans_walk if version == 3 else vpx_coder.vpx_walk
+    before = _counts(walk)
+    got = api.compress_device(jpeg, num_segments=4, device=cuda,
+                              version=version, symbolizer="native")
+    assert tuple(b - a for a, b in zip(before, _counts(walk))) == (1, 1, 1)
+    assert got == api.compress_device(jpeg, num_segments=4, device="cpu",
+                                      version=version, symbolizer="native")
+    assert got == api.compress_device(jpeg, num_segments=4, device=cuda,
+                                      version=version)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 3])
+def test_python_segment_codec_equals_card_coder(cuda, version):
+    """The port's scalar encode_segment (codec/driver.py) writes the
+    streams that the card's coder writes for the same segments."""
+    from lepton_tpu_torch import host
+    from lepton_tpu_torch.codec.driver import encode_segment
+    from lepton_tpu_torch.kernels import batch_encode
+    _, info, dec = api._parse(chip_smoke.make_photo(65, 64, 64))
+    desc = api._describe(info, dec, dec.handoffs[:1])
+    desc["splits_y"] = [0, 2, 4, 6]
+    card = batch_encode.encode_images_device([desc], version,
+                                             device=cuda)[0]
+    mh, cs = host._truncation_geometry(info, dec)
+    image = host._python_image(info, dec.planes, mh, cs)
+    bounds = desc["splits_y"] + [info.cmpnfo[0].bcv]
+    assert card == [encode_segment(image, bounds[i], bounds[i + 1], i == 3,
+                                   ans=version == 3) for i in range(4)]
