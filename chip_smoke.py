@@ -129,6 +129,25 @@ Phases (any failure exits non-zero, before the result line):
      trip of the QM coder (coder/jpeg_arith.py).  Phases 1 to 15 must not
      have taken the Python segment codec, in this process or in the
      server's waves.
+ 17. hostile, truncated and odd-sized input through the kernels: the
+     randomized soak (lepton_tpu_torch/soak.py) on the card, SOAK_CASES
+     cases from SOAK_SEED over versions 1 to 3, modes Z and X, 1, 3 and
+     4 components (at most 400 px a side: one segment each, whatever the
+     case's thread count), each case's .lep equal to the host codec's,
+     decoded back, and its truncated and bit-flipped containers decoding
+     to the host codec's outcome, in one batch_compress_device call a
+     version and one batch_decompress_device call, with the outcome
+     counts by class (no case may fail); phase 4's and phase 9's
+     16-segment files cut and bit-flipped the same way, in one call, held
+     to the host codec; the hostile kernel batches (soak.hostile_readers:
+     random and cut streams, empty lanes, against the plain reader and
+     the host's C segment decoder, two launches bitwise equal, a good
+     file decoded after; soak.hostile_coders: 0- and 1-symbol lanes
+     beside long and one-branch lanes at 1, 64 and 2048 lanes against the
+     plain stages); and a -tpu server wave of good, bit-flipped and
+     truncated .lep files: each bad request gets the empty reply, each
+     good one its JPEG, the server stays on the card and serves the next
+     wave.
 It prints stage times, sizes, rates and peak memory, then the card's name
 and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -161,6 +180,7 @@ ANS_CUT_ROWS, ANS_CUT_WIDTH = 1, 12   # phase-10 cut of the v3 lanes
 ANS_WALK_OPS_PER_SYMBOL = 20   # integer ops of one rANS-coded symbol
 PROBE_CHECK_ITERS = 2000       # steps of the probe's checksum holds
 PROBE_STEPS = 1 << 20          # steps of each timed probe chain
+SOAK_CASES, SOAK_SEED = 72, 0  # phase 17's soak
 QUIRK_SEED = 146               # gray_q100(QUIRK_SEED, 160, 96) hits the q100
                                # quirk with PIL's libjpeg-turbo 3.1
 
@@ -938,8 +958,9 @@ class Server:
     file, and clients that open every connection and send every payload
     before they read any reply."""
 
-    def __init__(self, tmp: str):
+    def __init__(self, tmp: str, phase: str = "14"):
         import socket
+        self.phase = phase
         self.sock = os.path.join(tmp, "serve.sock")
         with socket.socket() as s:
             s.bind(("localhost", 0))
@@ -954,13 +975,15 @@ class Server:
             stdout=subprocess.DEVNULL, stderr=self.err)
         while "tpu batch serving enabled" not in self.stderr():
             if self.proc.poll() is not None or time.perf_counter() - t > 300:
-                fail(f"[14] the server did not start: {self.stderr()}")
+                fail(f"[{phase}] the server did not start: "
+                     f"{self.stderr()}")
             time.sleep(0.2)
         self.start_s = time.perf_counter() - t
         self.seen = 0
 
     def stderr(self) -> str:
-        self.err.flush()
+        if not self.err.closed:
+            self.err.flush()
         with open(self.err_path) as f:
             return f.read()
 
@@ -997,7 +1020,7 @@ class Server:
         deadline = time.perf_counter() + 60
         while sum(w["n"] for w in waves) < len(payloads):
             if time.perf_counter() > deadline:
-                fail(f"[14] the server's wave lines are missing: "
+                fail(f"[{self.phase}] the server's wave lines are missing: "
                      f"{self.stderr()[-3000:]}")
             lines = [ln for ln in self.stderr().splitlines()
                      if ln.startswith("tpu batch served ")]
@@ -1696,6 +1719,140 @@ def phase_native_symbolizer(dev, blobs, leps, leps3, prof, prof3) -> dict:
     path = ("phase 16: compress_device(symbolizer=\"native\") of the four "
             "12 MP photos at 16 segments, v1 and v3, one launch each a call")
     return {k: (v, path) for k, v in launched.items()}
+
+
+def bad_leps(leps: dict, want: int) -> list:
+    """Up to `want` (.lep, kind) pairs of phase 17's soak cases whose
+    truncated or bit-flipped container the host codec refuses, each kind
+    in turn: the hostile requests of the server wave."""
+    from lepton_tpu_torch import host, soak
+    out = {"truncate": [], "bitflip": []}
+    for i, lep in sorted(leps.items()):
+        case = soak.Case(SOAK_SEED, i)
+        for check, blob, _ in soak._hostile_variants(case, lep):
+            try:
+                host.decompress(blob)
+            except Exception:
+                out[check].append(blob)
+    pairs = [(b, k) for k in out for b in out[k][:want // 2]]
+    if len(pairs) < want:
+        fail(f"[17] only {len(pairs)} refused hostile containers, not {want}")
+    return pairs
+
+
+def phase_soak(dev, smi: str, blobs, leps, leps3) -> dict:
+    """Phase 17: the soak on the card, the main path's 16-segment files
+    truncated and bit-flipped, the hostile kernel batches and a server
+    wave of corrupt .lep files.  Returns each kernel's launches in the
+    soak and its path."""
+    import tempfile
+
+    import torch
+    from lepton_tpu_torch import soak
+    t_phase = time.perf_counter()
+    reset_launches()
+    report = soak.run(SOAK_CASES, SOAK_SEED, dev, log=log)
+    torch.cuda.synchronize(dev)
+    launched = launch_counts()
+    s = report.summary()
+    log(f"[17] soak: {report.cases} cases of seed {SOAK_SEED} "
+        f"({report.skipped} that PIL refused), kinds {s['kinds']}, .lep "
+        f"segments {s['segments']}")
+    log(f"[17] soak outcome counts {json.dumps(s['counts'])}; full "
+        f"original from a cut container {report.full_from_cut}")
+    log(f"[17] soak by check {json.dumps(s['by_check'])}")
+    log(f"[17] soak stage s {json.dumps(s['seconds'])}; launches "
+        f"{launched}; "
+        f"{report.cases / sum(s['seconds'].values()):.2f} cases a second")
+    if report.failed:
+        for i, check, detail in report.failures:
+            log(f"[17] FAIL case {i} {check}: {detail}")
+        fail(f"[17] {report.failed} soak checks failed")
+    kinds = set(s["kinds"])
+    for need in ("v1", "v2", "v3", " Z ", " X ", "L", "RGB", "CMYK"):
+        if not any(need in k for k in kinds):
+            fail(f"[17] the soak drew no case of {need.strip()}: {kinds}")
+    if min(launched.values()) < 1:
+        fail(f"[17] the soak left a kernel unlaunched: {launched}")
+
+    t = time.perf_counter()
+    big = soak.hostile_containers(leps + leps3, blobs + blobs, dev)
+    torch.cuda.synchronize(dev)
+    log(f"[17] phase 4's and phase 9's 16-segment .lep files, each cut "
+        f"and bit-flipped three times, in one batch_decompress_device "
+        f"call: outcome counts {json.dumps(big.counts)}, by check "
+        f"{json.dumps(big.by_check)} ({time.perf_counter() - t:.1f} s)")
+    if big.failed:
+        for i, check, detail in big.failures:
+            log(f"[17] FAIL 12 MP file {i} {check}: {detail}")
+        fail(f"[17] {big.failed} checks of the 16-segment files failed")
+    t = time.perf_counter()
+    with uncounted():
+        readers = soak.hostile_readers(dev, list(report.leps.values()))
+        torch.cuda.synchronize(dev)
+        log(f"[17] hostile reader batches (random, empty and cut streams) "
+            f"equal to the plain reader and the host's C segment decoder, "
+            f"two launches bitwise equal, a good file decoded after: "
+            f"{readers} ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        coders = soak.hostile_coders(dev)
+        torch.cuda.synchronize(dev)
+    log(f"[17] hostile coder lanes at {[n for n, _ in soak.CODER_SHAPES]} "
+        f"lanes equal to the plain stages, twice: longest stream bytes "
+        f"{coders} ({time.perf_counter() - t:.1f} s)")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as tmp:
+        served = _soak_wave(report, tmp)
+    log(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s on "
+        f"{smi}")
+    path = (f"phase 17: the soak's {report.cases} cases, one "
+            "batch_compress_device call a version, one "
+            "batch_decompress_device(per_request=True) call of every .lep "
+            "and its truncated and bit-flipped variants, the single and "
+            "auxiliary calls")
+    return {k: (v, path) for k, v in launched.items()} | {"served": served}
+
+
+def _soak_wave(report, tmp: str) -> dict:
+    """Phase 17's server waves: good .lep files beside bit-flipped and
+    truncated ones that the host codec refuses, then a wave of good
+    requests alone.  Returns the host routes of the hostile wave."""
+    from lepton_tpu_torch import soak
+    good = sorted(report.leps)[:4]
+    blobs = [report.leps[i] for i in good]
+    wants = [soak.Case(SOAK_SEED, i).jpeg for i in good]
+    bad = bad_leps(report.leps, 4)
+    srv = Server(tmp, "17")
+    try:
+        replies, wall, waves = srv.ask(blobs + [b for b, _ in bad])
+        routes = total(waves, "host")
+        if replies[:4] != wants:
+            fail("[17] a good .lep beside hostile ones did not come back")
+        if any(replies[4:]):
+            fail("[17] a hostile .lep got a non-empty reply")
+        if routes["decode_failed"] != len(bad) or sum(routes.values()) \
+                != len(bad):
+            fail(f"[17] host routes {routes}, expected decode_failed "
+                 f"{len(bad)}")
+        launches = total(waves, "launches")
+        log(f"[17] server wave of {len(blobs)} good and {len(bad)} hostile "
+            f".lep ({', '.join(k for _, k in bad)}) in {len(waves)} "
+            f"wave(s): good replies right, hostile replies empty, host "
+            f"routes {routes}, launches {launches}, client wall "
+            f"{wall:.3f} s")
+        replies, wall, waves = srv.ask(blobs[:2])
+        if replies != wants[:2] or any(total(waves, "host").values()):
+            fail("[17] the wave after the hostile one was not served by "
+                 "the card")
+        if srv.proc.poll() is not None:
+            fail(f"[17] the server stopped: {srv.stderr()[-2000:]}")
+        log(f"[17] next wave served by the card in {wall:.3f} s; server "
+            "still up, no card fault")
+    finally:
+        rc = srv.stop()
+    if rc != 0 or "CUDA card failure" in srv.stderr():
+        fail(f"[17] the server exited with {rc}: {srv.stderr()[-3000:]}")
+    return routes
 
 
 def main() -> None:
@@ -2437,6 +2594,16 @@ def main() -> None:
                           ("ans_coder", "ans_walk")):
         (rows[name]["launches_native_symbolizer"],
          rows[name]["native_symbolizer_path"]) = native[counter]
+    # ---- phase 17: hostile, truncated and odd-sized input
+    soaked = phase_soak(dev, smi, blobs, leps, leps3)
+    for name, counter in (("vpx_coder", "vpx_walk"),
+                          ("run_heads", "run_heads"),
+                          ("walk_runs", "walk_runs"),
+                          ("ans_coder", "ans_walk"),
+                          ("vpx_decoder", "vpx_reader"),
+                          ("ans_reader", "ans_reader")):
+        rows[name]["launches_soak"], rows[name]["soak_path"] = \
+            soaked[counter]
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

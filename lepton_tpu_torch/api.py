@@ -121,6 +121,10 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
     one coder kernel launch.  Returns the .lep bytes of each, identical to
     compress_device on it alone and to the JAX package's batch_compress_tpu.
 
+    num_segments: the most segments a JPEG is cut into, one number for
+    every JPEG or a list of one a JPEG (a wave of uploads that asked for
+    different thread counts, as the randomized soak sends them).
+
     version: the container version, 1 (zlib header) or 2 (brotli header)
     with VPX lanes, or 3 (brotli header) with rANS lanes.
     allow_progressive: take progressive and multi-scan JPEGs too, written as
@@ -145,13 +149,18 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
     t = time.perf_counter()
     metas, descs = [], []
     parse = _parse_jpeg_jailed if jailed_parse else _parse
-    for i, data in enumerate(jpeg_blobs):
+    if isinstance(num_segments, int):
+        num_segments = [num_segments] * len(jpeg_blobs)
+    if len(num_segments) != len(jpeg_blobs):
+        raise ValueError(f"{len(num_segments)} segment counts for "
+                         f"{len(jpeg_blobs)} JPEGs")
+    for i, (data, nseg) in enumerate(zip(jpeg_blobs, num_segments)):
         # what a request's bytes make fail here raises one of
         # REQUEST_ERRORS; an error of the stages after this loop is the card's
         try:
             parsed, info, dec = parse(data, allow_progressive,
                                       allow_four_colors)
-            splits, num_threads = _plan(dec, num_segments)
+            splits, num_threads = _plan(dec, nseg)
             descs.append(_describe(info, dec, splits))
         except Exception as e:
             raise request_error(i, e)

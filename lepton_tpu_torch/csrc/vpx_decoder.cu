@@ -352,11 +352,11 @@ struct Model {
         return length;
     }
 
-    // residual bits length-2 down to 0, at most nslots of them
-    __device__ __forceinline__ int residual(int length, int base,
-                                            int nslots) {
+    // residual bits length-2 down to 0, every one of them as the host
+    // codec reads them (leptonc.c decode_block): up to kMaxExponent - 1
+    __device__ __forceinline__ int residual(int length, int base) {
         int acc = 0;
-        for (int i = length - 2; i >= 0 && i >= length - 1 - nslots; --i) {
+        for (int i = length - 2; i >= 0; --i) {
             acc |= read(base + i) << i;
         }
         return acc;
@@ -590,7 +590,7 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
                         const int sbit = rd.read(sign_base);
                         const int mag = rd.residual(
                             length, res_base + coord * lut[kRes + 2]
-                                    + nnzb * lut[kRes + 3], 9);
+                                    + nnzb * lut[kRes + 3]);
                         sm.here[coord] = signed_value(length, sbit, mag);
                         --nz_left;
                         nnzb = nnzb_next;
@@ -669,8 +669,7 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
                                             + remaining * lut[kRes + 3];
                             const int sbit = rd.read(sm.esign[j]);
                             int mag = 0, dsf = 1;
-                            for (int i = length - 2; i >= 0 && i >= length - 10;
-                                 --i) {
+                            for (int i = length - 2; i >= 0; --i) {
                                 const bool is_th = i >= mt;
                                 const int b = rd.read(is_th ? thresh + dsf
                                                             : res + i);
@@ -742,7 +741,7 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
                     const int sctx = unc2 < 0 ? 1 : unc2 == 0 ? 3 : 2;
                     const int sbit = rd.read(sign_base + sctx);
                     const int mag = rd.residual(
-                        length, lut[kResDc] + lm * lut[kResDc + 1], 10);
+                        length, lut[kResDc] + lm * lut[kResDc + 1]);
                     dc += signed_value(length, sbit, mag);
                 }
                 const int max_value = 1 << (kMaxExponent - 1);

@@ -39,10 +39,11 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from ..host import LeptonError
 from ..model.tables import arena_from_template
 from .ans_coder import encode_streams_ans, finalize_ans
 from .encode_pipeline import plan_rows, segment_top_rows
-from .symbolize import symbolize_slice
+from .symbolize import COEF_OUT_OF_RANGE, symbolize_slice
 from .vpx_coder import FIXED_PROB, PAD, encode_streams, finalize
 
 # blocks symbolized per call: bounds the [rows, W, BLOCK_SLOTS] slab and its
@@ -62,7 +63,8 @@ def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
     """Live symbols of one plane in emission order, and its per-row counts.
 
     Returns (idx int32 [N], bit uint8 [N], counts int64 [H]) on the plane's
-    device."""
+    device; a row with a value past 11 bits counts -1 (symbolize_slice's
+    COEF_OUT_OF_RANGE)."""
     H, W = coefs.shape[0], coefs.shape[1]
     dev = coefs.device
     quant, icx, icy, mnt = (
@@ -80,7 +82,8 @@ def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
                                    lo * W, size_limit, rha[lo:r1])
         idx, bit = idx[r0 - lo:], bit[r0 - lo:]
         live = idx != PAD
-        counts.append(live.sum(dim=(1, 2)))
+        over = (idx[..., 0] == COEF_OUT_OF_RANGE).any(dim=1)
+        counts.append(torch.where(over, -1, live.sum(dim=(1, 2))))
         parts_i.append(idx[live])
         parts_b.append(bit[live])
         del idx, bit, live
@@ -163,9 +166,14 @@ def symbolize_images(images, device="cuda", stats=None,
             plane_base[d, c] = len(counts) - 1
     # one device-to-host copy of every row count of the batch
     row_counts = torch.cat(counts).cpu().numpy() if counts else np.zeros(0)
+    first_row = np.cumsum([0] + [len(n) for n in counts])
+    for (d, c), p in plane_base.items():
+        if (row_counts[first_row[p]:first_row[p + 1]] < 0).any():
+            # the host codec refuses such a JPEG (leptonc.c encode_block)
+            raise LeptonError(f"request {d}: coefficient out of range "
+                              "(a coded value past 11 bits)")
     row_off = np.zeros(len(row_counts) + 1, np.int64)
     np.cumsum(row_counts, out=row_off[1:])
-    first_row = np.cumsum([0] + [len(n) for n in counts])
     sym_i = torch.cat(sym_i) if sym_i \
         else torch.zeros(0, dtype=torch.int32, device=dev)
     sym_b = torch.cat(sym_b) if sym_b \

@@ -165,18 +165,28 @@ def check(idx: torch.Tensor, bit: torch.Tensor,
                          f"{idx.device}")
 
 
+def key_shift(S: int, L: int) -> int:
+    """The shift of the packed sort key of S lanes of L symbols, (lane *
+    ARENA_SIZE + branch) << shift | position << 1 | bit: one bit more than
+    a position takes.  Raises ValueError where the largest key, below
+    S * ARENA_SIZE << shift, would not fit in 63 bits (the sort is of
+    signed int64: a wrapped key would sort first)."""
+    shift = max(L - 1, 1).bit_length() + 1
+    if S * ARENA_SIZE > 1 << (63 - shift):
+        raise ValueError(f"{S} lanes of {L} symbols overflow the 63-bit "
+                         "sort key")
+    return shift
+
+
 def group(idx: torch.Tensor, bit: torch.Tensor,
           nsyms: Optional[torch.Tensor] = None):
     """The live symbols' packed keys, sorted: (keys int64 [N], shift).
 
     A symbol is live where idx >= 0 and, given nsyms, its position is
     below its lane's nsyms.  Raises ValueError where the key would not fit
-    in 63 bits."""
+    in 63 bits (key_shift)."""
     S, L = idx.shape
-    shift = max(L - 1, 1).bit_length() + 1
-    if S * ARENA_SIZE > 1 << (63 - shift):
-        raise ValueError(f"{S} lanes of {L} symbols overflow the 63-bit "
-                         "sort key")
+    shift = key_shift(S, L)
     dev = idx.device
     live = idx >= 0
     if nsyms is not None:

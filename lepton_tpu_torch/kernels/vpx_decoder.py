@@ -590,12 +590,14 @@ class _Lanes:
             length += cont.to(torch.int64)
         return length
 
-    def sign_residual(self, length, sign_idx, res_base, active, nslots):
-        """Sign bit, then residual bits length-2 down to 0 at res_base + i,
-        at most nslots of them.  Returns (sign bit, magnitude bits)."""
+    def sign_residual(self, length, sign_idx, res_base, active):
+        """Sign bit, then residual bits length-2 down to 0 at res_base + i:
+        every one of them, as the host codec reads them (leptonc.c
+        decode_block), up to COEF_BITS for the longest exponent.  Returns
+        (sign bit, magnitude bits)."""
         sbit = self.read(sign_idx, active)
         acc = torch.zeros_like(length)
-        for j in range(nslots):
+        for j in range(C.COEF_BITS):
             i = length - 2 - j
             cur = active & (i >= 0)
             if not bool(cur.any()):
@@ -775,7 +777,7 @@ def decode_lanes_plain(data, dlen, lanes, rows, tables, ring_width: int,
             nonzero = act & (length > 0)
             sbit, mag = rd.sign_residual(
                 length, sign_base, res_base + coord * sr[1] + nnzb * sr[2],
-                nonzero, 9)
+                nonzero)
             here[:, coord] = torch.where(nonzero, _signed(length, sbit, mag),
                                          here[:, coord])
             nz_left -= nonzero.to(i64)
@@ -828,7 +830,7 @@ def decode_lanes_plain(data, dlen, lanes, rows, tables, ring_width: int,
                 res = res_base + band * sr[1] + remaining * sr[2]
                 mag = torch.zeros(S, dtype=i64, device=dev)
                 dsf = torch.ones(S, dtype=i64, device=dev)
-                for j in range(9):
+                for j in range(C.COEF_BITS):
                     i = length - 2 - j
                     cur = nonzero & (i >= 0)
                     if not bool(cur.any()):
@@ -878,7 +880,7 @@ def decode_lanes_plain(data, dlen, lanes, rows, tables, ring_width: int,
         sbit, mag = rd.sign_residual(
             length, sign_base + sctx,
             off["residual_noise_dc"] + lm * stride["residual_noise_dc"][0],
-            nonzero, 10)
+            nonzero)
         max_value = 1 << (C.MAX_EXPONENT - 1)
         dc = torch.where(nonzero, _signed(length, sbit, mag), 0) + pred_dc
         dc = torch.where(dc < -max_value, dc + 2 * max_value + 1, dc)

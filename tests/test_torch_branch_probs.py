@@ -273,3 +273,115 @@ def test_overflow_reruns_the_walk_alone(coder, monkeypatch):
     assert calls["probs"] == 1
     # the rerun's cap is the longest lane's count
     assert len(calls["walk"]) == 2 and calls["walk"][0] == 4 < calls["walk"][1]
+
+
+def _one_branch_lanes(framed: bool):
+    """Lanes that pin the probability stage's order: empty, one symbol,
+    every symbol on one branch (long enough to pass both count overflows),
+    one lane on the arena's last branch, and a lane that revisits the
+    first lane's branch (a run per lane, never across lanes)."""
+    rng = np.random.default_rng(21)
+    segments = [([], []), ([5], [1]),
+                ([9] * 700, rng.integers(0, 2, 700).tolist()),
+                ([ARENA_SIZE - 1] * 300, [1] * 200 + [0] * 100), ([], []),
+                ([9] * 3, [0, 1, 0])]
+    if framed:
+        idx, bit = vpx_coder.build_symbol_streams(segments)
+        return torch.as_tensor(idx), torch.as_tensor(bit), None
+    return tuple(torch.as_tensor(a) for a in chip_smoke.unframed_lanes(
+        segments))
+
+
+@pytest.mark.parametrize("rule", ["vpx", "adv"])
+def test_sort_order_matches_model_probs_sorted(rule):
+    """The packed-key sort (branch_probs.group) codes each lane's symbols
+    in the order of model_probs_sorted's stable sort on the branch
+    (vpx_scan.py:556-557), on lanes of 0 and 1 symbols and lanes whose
+    symbols all hit one branch; the keys unpack to their (lane, branch,
+    position, bit) and stay non-negative."""
+    idx, bit, nsyms = _one_branch_lanes(framed=rule == "vpx")
+    probs, _ = bp.branch_probs(idx, bit, None, rule, nsyms)
+    assert np.array_equal(probs.numpy(), _jax_probs(idx, bit, rule, None))
+    assert torch.equal(probs, bp.arena_probs_plain(idx, bit, None, rule,
+                                                   nsyms))
+    keys, shift = bp.group(idx, bit, nsyms)
+    assert bool((keys >= 0).all()) and bool((keys[1:] > keys[:-1]).all())
+    S, L = idx.shape
+    lane, branch = (keys >> shift) // ARENA_SIZE, (keys >> shift) % ARENA_SIZE
+    pos = (keys >> 1) & ((1 << (shift - 1)) - 1)
+    assert torch.equal(idx[lane, pos].long(), branch)
+    assert torch.equal(bit[lane, pos].long(), keys & 1)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 1 << 10, (1 << 10) + 1, 1 << 20,
+                               (1 << 26) + 1, 1 << 40])
+def test_sort_key_guard_at_its_edge(L):
+    """key_shift takes the most lanes whose largest key, ((S *
+    ARENA_SIZE - 1) << shift) | (L - 1) << 1 | 1, still fits in 63 bits,
+    and raises at one lane more: a key never wraps into the sign bit."""
+    shift = max(L - 1, 1).bit_length() + 1
+    most = (1 << (63 - shift)) // ARENA_SIZE
+    assert bp.key_shift(most, L) == shift
+    largest = ((most * ARENA_SIZE - 1) << shift) | (L - 1) << 1 | 1
+    assert largest < 1 << 63
+    with pytest.raises(ValueError, match="overflow"):
+        bp.key_shift(most + 1, L)
+
+
+def _wide_edges():
+    """(n, d) on _exact_div_f32's wide domain edges: n < 2^31 with
+    n / d < 2^24, for d = 1 and 2 up to 2^10, n at the top of its range
+    and around multiples of d there, and small n."""
+    pairs = set()
+    for d in (1, 2, 3, 7, 127, 128, 129, 255, 256, 257, 511, 1023, 1024):
+        top = min((1 << 31) - 1, d * (1 << 24) - 1)
+        k = top // d * d
+        for n in (top, top - 1, top - d, k, k - 1, k + 1, k - d, 0, 1,
+                  d - 1, d, d + 1, 1 << 16, (1 << 16) - 1):
+            if 0 <= n <= top:
+                pairs.add((n, d))
+    return sorted(pairs)
+
+
+def _freq_entry(freq: int) -> int:
+    """The enc_table entry of a 1 bit coded with frequency freq (1 to
+    256): bit 1 << 8 | prob, freq = 256 - prob."""
+    return 0x100 | (256 - freq) & 0xFF
+
+
+def test_reciprocal_division_matches_exact_div_f32():
+    """The reciprocal divisions of the port's kernels against the JAX
+    division they replaced, vpx_scan._exact_div_f32 (:451-472), on its
+    wide=True domain edges: the walk's 64-bit reciprocal
+    (ans_coder.enc_table, q = (mulhi(m, x) + x) >> l, freq 1 to 256; the
+    JAX _div64_small on (hi, lo) with hi up to 2^31 - 1) and the branch
+    update's ceil(2^32 / d) with __umulhi (vpx_branch.cuh, d below 512,
+    n below 2^16).  d = 2^10, past every divisor the port's kernels take,
+    pins the JAX function alone."""
+    pairs = _wide_edges()
+    n = jnp.asarray([p[0] for p in pairs], jnp.int32)
+    d = jnp.asarray([p[1] for p in pairs], jnp.int32)
+    jwide = np.asarray(vpx_scan._exact_div_f32(n, d, wide=True))
+    assert jwide.tolist() == [a // b for a, b in pairs]
+    table = ans_coder.enc_table()
+    for (a, b), q in zip(pairs, jwide.tolist()):
+        if b <= 256:
+            m, _, rest = (int(v) for v in table[_freq_entry(b)])
+            assert (((m * a) >> 64) + a) >> (rest & 0xFF) == q, (a, b)
+        if 2 <= b < 512 and a < 1 << 16:
+            assert (a * (((1 << 32) + b - 1) // b)) >> 32 == q, (a, b)
+    # the 64-bit rANS division: hi < 2^31 at its top, freq 1 to 256
+    his = [(1 << 31) - 1, (1 << 31) - 2, 1 << 30, 255, 0]
+    los = [0, 1, (1 << 32) - 1, 0x80000000]
+    for f in (1, 2, 3, 127, 128, 255, 256):
+        hi = jnp.asarray([h for h in his for _ in los], jnp.int32)
+        lo = jnp.asarray([x for _ in his for x in los], jnp.uint32)
+        qh, ql, rem = (np.asarray(a) for a in vpx_scan._div64_small(
+            hi, lo, jnp.full(hi.shape, f, jnp.int32)))
+        m, _, rest = (int(v) for v in table[_freq_entry(f)])
+        for k, (h, x) in enumerate((h, x) for h in his for x in los):
+            full = h << 32 | x
+            q = (((m * full) >> 64) + full) >> (rest & 0xFF)
+            assert q == full // f
+            assert (int(qh[k]) << 32 | int(ql[k])) == q, (h, x, f)
+            assert int(rem[k]) == full - q * f

@@ -85,3 +85,27 @@ def test_bit_length_exact():
                   (1 << 24) + 1, (1 << 31) - 1, -1, -(1 << 31)], np.int32)
     want = [int(x).bit_length() if x > 0 else 0 for x in v.tolist()]
     assert tctx.bit_length(torch.as_tensor(v)).tolist() == want
+
+
+def _clz_edges():
+    """0, 1, 2^k - 1, 2^k and 2^k + 1 up to 2^31 - 1, and negatives down
+    to -2^31."""
+    v = {0, 1, (1 << 31) - 1}
+    for k in range(1, 31):
+        v.update({(1 << k) - 1, 1 << k, (1 << k) + 1})
+    v.update(-x for x in list(v) if x)
+    v.add(-(1 << 31))
+    return np.array(sorted(v), np.int32)
+
+
+def test_bit_length_matches_clz():
+    """contexts.bit_length (frexp of the float64 value) against the JAX
+    kernels' form, jnp.where(v > 0, 32 - lax.clz(v), 0)
+    (lepton_tpu/kernels/contexts.py:253, symbolize.py:58), at every power
+    of two's edges and on negatives (0 in both)."""
+    v = _clz_edges()
+    want = np.asarray(jnp.where(jnp.asarray(v) > 0,
+                                32 - jax.lax.clz(jnp.asarray(v)), 0))
+    got = tctx.bit_length(torch.as_tensor(v)).numpy()
+    assert got.dtype == np.int32
+    assert np.array_equal(got, want), v[got != want]

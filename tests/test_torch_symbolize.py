@@ -1,9 +1,12 @@
 """Port symbolize_slice (lepton_tpu_torch.kernels.symbolize) against JAX.
 
 Random planes with realistic sparsity, luma and chroma models, segment-top
-rows masked in row_has_above, and an early-EOF size_limit cut.  The
-(branch, bit) slabs must be equal wherever a slot is live, and PAD in the
-same places: the tolerance is zero.
+rows masked in row_has_above, and an early-EOF size_limit cut.  Each
+block's live (branch, bit) slots, in slab order, must be the JAX slab's:
+the emission order is the same and the tolerance is zero.  The port's
+slab gives each coded value a tenth residual slot, which only an 11-bit
+AC coefficient fills (the host codec codes it; the JAX slab has 9), so
+PAD sits in other places.
 """
 import numpy as np
 import pytest
@@ -35,6 +38,14 @@ def _qtable(seed):
     return np.random.default_rng(seed).integers(1, 60, 64)
 
 
+def _assert_same_emission(ti, tb, ji, jb):
+    """Each block's live slots, in order, equal: idx and bit."""
+    tl, jl = ti != PAD, ji != PAD
+    assert np.array_equal(tl.sum(-1), jl.sum(-1))
+    assert np.array_equal(ti[tl], ji[jl])
+    assert np.array_equal(tb[tl], jb[jl])
+
+
 def _run_both(coefs, ci, q, rha, row_block_offset, size_limit):
     ct, jct = ColorTables(q), JColorTables(q)
     targs = [torch.as_tensor(np.asarray(a, np.int32)) for a in (
@@ -59,24 +70,28 @@ def test_symbolize_matches_jax(ci):
     rha = np.ones(H, bool)
     rha[[0, 2]] = False                 # row 2 starts a segment
     ti, tb, ji, jb = _run_both(coefs, ci, _qtable(ci), rha, 0, H * W)
-    assert ti.shape == (H, W, tsym.BLOCK_SLOTS) == ji.shape
+    assert ti.shape == (H, W, tsym.BLOCK_SLOTS)
     assert ti.dtype == np.int32 and tb.dtype == np.uint8
-    assert np.array_equal(ti, ji)
+    _assert_same_emission(ti, tb, ji, jb)
     live = ti != PAD
     assert live.sum() > H * W * 20
-    assert np.array_equal(tb[live], jb[live])
 
 
 def test_symbolize_default_rows_and_size_limit():
-    """Default row contexts, and blocks past size_limit emit nothing."""
+    """Default row contexts, and blocks past size_limit emit nothing but
+    the first block of each row, which the host codec codes before it
+    tests the limit (leptonc.c process_row); the JAX slab leaves it out,
+    and is held equal on every other block."""
     H, W = 4, 7
     coefs = _plane(7, H, W)
     ti, tb, ji, jb = _run_both(coefs, 0, _qtable(7), None, 3, 3 + 17)
-    assert np.array_equal(ti, ji)
-    live = ti != PAD
-    assert np.array_equal(tb[live], jb[live])
-    flat = live.reshape(H * W, -1).any(axis=1)
-    assert flat[:17].all() and not flat[17:].any()
+    live = (ti != PAD).reshape(H * W, -1).any(axis=1)
+    jlive = (ji != PAD).reshape(H * W, -1).any(axis=1)
+    assert jlive[:17].all() and not jlive[17:].any()
+    first = np.arange(H * W) % W == 0
+    assert np.array_equal(live, jlive | first)
+    keep = jlive.reshape(H, W)
+    _assert_same_emission(ti[keep], tb[keep], ji[keep], jb[keep])
 
 
 def test_symbolize_row_chunks_equal_whole_plane():
