@@ -43,7 +43,8 @@ Phases (any failure exits non-zero, before the result line):
      branches a lane.  Then the
      decoder is timed again on all 64 lanes and on the longest lane alone,
      and held against its plain version on all 64 lanes of the main path,
-     each cut to its first row of a few dozen blocks, with plane widths,
+     each cut to its first two rows a component of at most a dozen
+     blocks, with plane widths,
      output offsets, ring and plane sizes as the main path gives them;
   8. hold the ANS coder's kernels against their plain versions on CUDA
      tensors, kernel by kernel (run_heads and walk_runs under the adv rule,
@@ -133,7 +134,9 @@ Phases (any failure exits non-zero, before the result line):
      randomized soak (lepton_tpu_torch/soak.py) on the card, SOAK_CASES
      cases from SOAK_SEED over versions 1 to 3, modes Z and X, 1, 3 and
      4 components (at most 400 px a side: one segment each, whatever the
-     case's thread count), each case's .lep equal to the host codec's,
+     case's thread count), then soak.MULTI_SEGMENTS' cases sized to code
+     2, 4, 6 and 8 segments (each held to its count), each case's .lep
+     equal to the host codec's,
      decoded back, and its truncated and bit-flipped containers decoding
      to the host codec's outcome, in one batch_compress_device call a
      version and one batch_decompress_device call, with the outcome
@@ -147,7 +150,16 @@ Phases (any failure exits non-zero, before the result line):
      plain stages); and a -tpu server wave of good, bit-flipped and
      truncated .lep files: each bad request gets the empty reply, each
      good one its JPEG, the server stays on the card and serves the next
-     wave.
+     wave; both readers on streams whose row past an early-EOF cut codes
+     block 0 (soak.past_cut_lanes), equal to the plain reader and the
+     host's C segment decoder.
+ 18. the port's bench runner (lepton_tpu_torch/bench.py, python -m
+     lepton_tpu_torch.bench) in this process on phase 4's photos: every
+     section (host codec, symbolize, coders, one photo's encode and decode
+     latency, the batch both ways, the 128-image knee corpus and its lane
+     sweep, the one-device mesh, the -tpu server), each run held to its
+     gates; the runner's object on a line of its own, and each kernel's
+     launches in it (launches_bench in the kernels line).
 It prints stage times, sizes, rates and peak memory, then the card's name
 and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -174,7 +186,7 @@ PROBS_OPS_PER_SYMBOL = 15      # integer ops of one branch update, roughly
 HEADS_OPS_PER_KEY = 4          # integer ops of one key's run-start test
 DECODER_OPS_PER_READ = 40      # integer ops of one decoded read, roughly
 STOP_BITS = 32                 # coded after each lane's last symbol
-CUT_ROWS, CUT_WIDTH = 2, 24    # phase-7 cut of the main path's lanes
+CUT_ROWS, CUT_WIDTH = 2, 12    # phase-7 cut of the main path's lanes
 ANS_PREFIX = 10000             # symbols per lane in the phase-8 prefix cut
 ANS_CUT_ROWS, ANS_CUT_WIDTH = 1, 12   # phase-10 cut of the v3 lanes
 ANS_WALK_OPS_PER_SYMBOL = 20   # integer ops of one rANS-coded symbol
@@ -194,39 +206,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_photo(seed: int, w: int, h: int, quality: int = 90,
-               progressive: bool = False, mode: str = "RGB") -> bytes:
-    """A phone-photo-like JPEG (q90, 4:2:0): smooth gradients and shading,
-    hard-edged patches, mild sensor noise, all from a numpy seed; baseline
-    or progressive, RGB or (the same picture's three channels and their
-    mean as K) CMYK."""
-    from PIL import Image
-    rng = np.random.default_rng(seed)
-    s = w / 4032.0
-    yy = np.arange(h, dtype=np.float32)[:, None]
-    xx = np.arange(w, dtype=np.float32)[None, :]
-    img = np.empty((h, w, 3), np.float32)
-    for c in range(3):
-        gx, gy, amp = rng.uniform(-70, 70, 3)
-        fx, fy = rng.uniform(150, 700, 2) * s
-        px, py = rng.uniform(0, 6.28, 2)
-        img[..., c] = (128 + gx * xx / w + gy * yy / h
-                       + amp * np.sin(xx / fx + px) * np.cos(yy / fy + py))
-    for _ in range(60):
-        x0, y0 = int(rng.integers(0, w)), int(rng.integers(0, h))
-        ww, hh = (rng.integers(40, 900, 2) * s).astype(int) + 1
-        img[y0:y0 + hh, x0:x0 + ww] += rng.uniform(-45, 45, 3).astype(
-            np.float32)
-    img += rng.normal(0, 5.0, (h, w, 3)).astype(np.float32)
-    pixels = np.clip(img, 0, 255).astype(np.uint8)
-    if mode == "CMYK":
-        pixels = np.concatenate([pixels, pixels.mean(-1, keepdims=True,
-                                                     dtype=np.float32)
-                                 .astype(np.uint8)], -1)
-    buf = io.BytesIO()
-    Image.fromarray(pixels, mode).save(buf, "JPEG", quality=quality,
-                                       subsampling=2, progressive=progressive)
-    return buf.getvalue()
+def make_photo(*args, **kw) -> bytes:
+    """lepton_tpu_torch.bench.make_photo: a phone-photo-like JPEG from a
+    numpy seed (phase 4's photos are the runner's main batch)."""
+    from lepton_tpu_torch.bench import make_photo as make
+    return make(*args, **kw)
 
 
 def multi_scan_jpeg(jpeg: bytes) -> bytes:
@@ -1728,6 +1712,8 @@ def bad_leps(leps: dict, want: int) -> list:
     from lepton_tpu_torch import host, soak
     out = {"truncate": [], "bitflip": []}
     for i, lep in sorted(leps.items()):
+        if i >= SOAK_CASES:         # a multi-segment case
+            continue
         case = soak.Case(SOAK_SEED, i)
         for check, blob, _ in soak._hostile_variants(case, lep):
             try:
@@ -1738,6 +1724,33 @@ def bad_leps(leps: dict, want: int) -> list:
     if len(pairs) < want:
         fail(f"[17] only {len(pairs)} refused hostile containers, not {want}")
     return pairs
+
+
+def past_cut_lanes(dev) -> None:
+    """Both readers on soak.past_cut_lanes' streams, whose row past an
+    early-EOF cut codes a non-zero block 0: the kernel's planes and flags
+    equal the plain reader's and the host's C segment decoder's, and that
+    block is decoded."""
+    from lepton_tpu_torch import soak
+    from lepton_tpu_torch.kernels import vpx_decoder
+    for version, coder in ((1, "vpx"), (3, "ans")):
+        lep, req, past = soak.past_cut_lanes(version)
+        plan = vpx_decoder.plan_decode([req], coder)
+        got = [t.cpu().numpy() for t in vpx_decoder.decode_lanes(
+            **plan.to(dev))]
+        want = [t.numpy() for t in vpx_decoder.decode_lanes(
+            **plan.to("cpu"))]
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"[17] {coder} reader: a row past the cut differs from the "
+                 f"plain reader")
+        if soak.host_diffs(plan, [(lep, req)], *got):
+            fail(f"[17] {coder} reader: a row past the cut differs from the "
+                 f"host's C segment decoder")
+        for c, y in past:
+            o, _, w = plan.planes[0][c]
+            if not got[0][o + y * w].any():
+                fail(f"[17] {coder} reader: block 0 of row {y} of component "
+                     f"{c}, past the cut, not decoded")
 
 
 def phase_soak(dev, smi: str, blobs, leps, leps3) -> dict:
@@ -1751,7 +1764,8 @@ def phase_soak(dev, smi: str, blobs, leps, leps3) -> dict:
     from lepton_tpu_torch import soak
     t_phase = time.perf_counter()
     reset_launches()
-    report = soak.run(SOAK_CASES, SOAK_SEED, dev, log=log)
+    report = soak.run(SOAK_CASES, SOAK_SEED, dev, log=log,
+                      multi=soak.MULTI_SEGMENTS)
     torch.cuda.synchronize(dev)
     launched = launch_counts()
     s = report.summary()
@@ -1774,6 +1788,20 @@ def phase_soak(dev, smi: str, blobs, leps, leps3) -> dict:
             fail(f"[17] the soak drew no case of {need.strip()}: {kinds}")
     if min(launched.values()) < 1:
         fail(f"[17] the soak left a kernel unlaunched: {launched}")
+    multi = sum(n for k, n in s["segments"].items() if 2 <= k <= 8)
+    held = s["by_check"].get("segments", {}).get("ok", 0)
+    if held != len(soak.MULTI_SEGMENTS) or multi < len(soak.MULTI_SEGMENTS):
+        fail(f"[17] multi-segment cases: {held} held their segment counts "
+             f"{soak.MULTI_SEGMENTS}; .lep segments {s['segments']}")
+    log(f"[17] the {len(soak.MULTI_SEGMENTS)} multi-segment cases coded "
+        f"{list(soak.MULTI_SEGMENTS)} segments on the card, as on the "
+        f"host, and passed every check")
+
+    t = time.perf_counter()
+    past_cut_lanes(dev)
+    log(f"[17] rows past an early-EOF cut: the VPX and rANS readers decode "
+        f"block 0, equal to the plain reader and the host's C segment "
+        f"decoder ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
     big = soak.hostile_containers(leps + leps3, blobs + blobs, dev)
@@ -1853,6 +1881,56 @@ def _soak_wave(report, tmp: str) -> dict:
     if rc != 0 or "CUDA card failure" in srv.stderr():
         fail(f"[17] the server exited with {rc}: {srv.stderr()[-3000:]}")
     return routes
+
+
+BENCH_COUNTERS = {"vpx_coder": "vpx_walk", "run_heads": "run_heads",
+                  "walk_runs": "walk_runs", "ans_coder": "ans_walk",
+                  "vpx_decoder": "vpx_reader", "ans_reader": "ans_reader"}
+
+
+def phase_bench(dev, smi: str, blobs) -> dict:
+    """Phase 18: the port's bench runner (lepton_tpu_torch/bench.py,
+    python -m lepton_tpu_torch.bench) in this process, on phase 4's
+    photos: every section, each run held to its gates.  Logs the runner's
+    object on a line of its own; returns each kernel's launches in the
+    run and its path."""
+    import torch
+    from lepton_tpu_torch import bench
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launches()
+    res = bench.run(dev, blobs=blobs, log=lambda m: log(f"[18] {m}"))
+    torch.cuda.synchronize(dev)
+    launched = launch_counts()
+    log(json.dumps(res))
+    if res.get("ok") is not True:
+        fail(f"[18] the runner's line says ok {res.get('ok')}")
+    if min(launched.values()) < 1:
+        fail(f"[18] the bench left a kernel unlaunched: {launched}")
+    for v in ("v1", "v3"):
+        e, d = res["batch_encode"][v], res["batch_decode"][v]
+        enc = res["encode_latency"][v]["encode_latency_s"]["median"]
+        dec = res["decode_latency"][v]["decode_latency_s"]["median"]
+        log(f"[18] batch_encode {v}: {e['encode_mbps']['median']:.2f} MB/s "
+            f"(min {e['encode_mbps']['min']:.2f}, max "
+            f"{e['encode_mbps']['max']:.2f}), peak "
+            f"{e['peak_bytes'] / 2**30:.2f} GiB; batch_decode "
+            f"{d['decode_mbps']['median']:.2f} MB/s; encode_latency "
+            f"{enc:.3f} s, decode_latency {dec:.3f} s")
+    for n, row in res["knee"]["sweep"].items():
+        log(f"[18] knee, {n} images, {row['lanes']} lanes: encode "
+            f"{row['encode']['encode_mbps']['median']:.2f} MB/s, coder "
+            f"{row['encode']['coder_msym_per_s']['median']:.1f} Msym/s, "
+            f"decode {row['decode']['decode_mbps']['median']:.2f} MB/s, "
+            f"peak {row['encode']['peak_bytes'] / 2**30:.2f} GiB, key "
+            f"shift "
+            f"{row['key_shift']}")
+    log(f"[18] launches {launched}; phase 18 took "
+        f"{time.perf_counter() - t:.1f} s on {smi}")
+    path = ("phase 18: bench.run, every section of python -m "
+            "lepton_tpu_torch.bench on phase 4's photos and the knee "
+            "corpus")
+    return {k: (v, path) for k, v in launched.items()}
 
 
 def main() -> None:
@@ -2604,6 +2682,13 @@ def main() -> None:
                           ("ans_reader", "ans_reader")):
         rows[name]["launches_soak"], rows[name]["soak_path"] = \
             soaked[counter]
+    # ---- phase 18: the bench runner
+    benched = phase_bench(dev, smi, blobs)
+    for row in kernels:
+        counter = BENCH_COUNTERS.get(row["name"])
+        row["launches_bench"], row["bench_path"] = benched[counter] \
+            if counter else (0, "on no section of the bench (phase 12's "
+                                "probe)")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

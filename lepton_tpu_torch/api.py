@@ -410,10 +410,11 @@ def batch_decompress_device(leps, device=None, stats=None,
     return out
 
 
-def decompress_device(lep_data: bytes, device=None, mesh=None) -> bytes:
+def decompress_device(lep_data: bytes, device=None, mesh=None,
+                      stats=None) -> bytes:
     """Decode one .lep on the card: the batch pipeline with a one-request
     batch.  Bit-exact with the host decompress and decompress_tpu.  mesh:
     the lanes split over the devices of its 'seg' axis, as
     decompress_tpu(mesh=) splits them (lepton_tpu/api.py:539-592); see
-    batch_decompress_device."""
-    return batch_decompress_device([lep_data], device, mesh=mesh)[0]
+    batch_decompress_device, which says what stats receives."""
+    return batch_decompress_device([lep_data], device, stats, mesh=mesh)[0]

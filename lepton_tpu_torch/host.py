@@ -27,6 +27,7 @@ from __future__ import annotations
 import os
 import sys
 import time
+from dataclasses import replace
 from typing import Optional
 
 import numpy as np
@@ -301,10 +302,35 @@ def _handoffs(hdr, mux_region: bytes, info: ImageInfo, what: str = ""):
     return handoffs, mux_region
 
 
+def _reemit_handoffs(hdr, handoffs, info: ImageInfo) -> list:
+    """The handoffs the baseline re-emit starts its segments from.  In an
+    early-EOF file the scan decode crystallizes its last handoff where the
+    data ends, mid-row, and files it under the next MCU row
+    (jpeg/decoder.py's final _crystallize and the luma_y_start fix-up
+    after it): a segment that starts at or past the rows the cut left
+    coded (_truncation_geometry) carries the state of the cut, not that of
+    its first row, and checking it raises "handoff mismatch" though every
+    byte such a segment re-emits lies past the output bound.  Those
+    segments are folded into the last one before them, which re-emits to
+    the end of the image from its running state, as a one-segment file
+    does.  The .lep bytes are untouched; the JAX package's re-emit, which
+    checks every handoff, refuses these files."""
+    if not hdr.early_eof or len(handoffs) < 2:
+        return handoffs
+    coded = _truncation_geometry(info, hdr)[0][0]
+    k = next((i for i in range(1, len(handoffs))
+              if handoffs[i].luma_y_start >= coded), len(handoffs))
+    if k == len(handoffs):
+        return handoffs
+    last = replace(handoffs[k - 1], luma_y_end=handoffs[-1].luma_y_end)
+    return handoffs[:k - 1] + [last]
+
+
 def _reemit(hdr, handoffs, planes) -> bytes:
     """Huffman re-emit from decoded planes (lepton_tpu.api._tpu_decode_reemit,
     :465-478): mode X regenerates every scan from the whole planes; modes
-    Z and Y re-emit the one baseline scan segment by segment."""
+    Z and Y re-emit the one baseline scan segment by segment
+    (_reemit_handoffs)."""
     info = image_info_from_header(hdr.hdrdata, allow_34=True)
     if hdr.mode == ord("X"):
         return recode_progressive_jpeg(
@@ -313,7 +339,8 @@ def _reemit(hdr, handoffs, planes) -> bytes:
             hdr.prefix_garbage, hdr.embedded_jpeg,
             truncated=hdr.early_eof)
     return recode_baseline_jpeg(
-        hdr.hdrdata, planes, handoffs, info, hdr.padbit,
+        hdr.hdrdata, planes, _reemit_handoffs(hdr, handoffs, info),
+        info, hdr.padbit,
         hdr.rst_cnt, hdr.rst_cnt_set, hdr.rst_err, hdr.garbage,
         hdr.original_size, hdr.prefix_garbage, hdr.embedded_jpeg)
 
@@ -690,10 +717,10 @@ def decompress_streaming(lep_data: bytes) -> bytes:
     from .jpeg.recoder import recode_baseline_jpeg_streaming
     try:
         return recode_baseline_jpeg_streaming(
-            hdr.hdrdata, native.planes, masks, ensure_decoded, handoffs,
-            info, hdr.padbit, hdr.rst_cnt, hdr.rst_cnt_set, hdr.rst_err,
-            hdr.garbage, hdr.original_size, hdr.prefix_garbage,
-            hdr.embedded_jpeg)
+            hdr.hdrdata, native.planes, masks, ensure_decoded,
+            _reemit_handoffs(hdr, handoffs, info), info, hdr.padbit,
+            hdr.rst_cnt, hdr.rst_cnt_set, hdr.rst_err, hdr.garbage,
+            hdr.original_size, hdr.prefix_garbage, hdr.embedded_jpeg)
     finally:
         if state["dec"] is not None:
             state["dec"].close()

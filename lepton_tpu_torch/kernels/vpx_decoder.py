@@ -146,7 +146,8 @@ class DecodePlan:
     def owned_blocks(self, lo: int, hi: int) -> np.ndarray:
         """int64 indices of the blocks that lanes lo..hi-1 write: every
         block of each of their rows that decodes (a row cut by early EOF
-        decodes its first `width` blocks; the rest stay zero)."""
+        decodes its first `width` blocks, at least block 0; the rest stay
+        zero)."""
         r0, r1 = self._row_span(lo, hi)
         width = self.rows[r0:r1, 2].astype(np.int64)
         start = self.rows[r0:r1, 6].astype(np.int64)
@@ -170,8 +171,12 @@ def plan_decode(requests, coder: str = "vpx") -> DecodePlan:
     .decode_segments_pallas_multi).  Row descriptors as in
     decode_segments_pallas_multi (:858-896): has_above is false on the
     first row of each component within a segment; a row cut by early EOF
-    decodes min(W, component_sizes[c] - y * W) blocks.  coder: "vpx" for
-    the streams of containers v1 and v2, "ans" for those of v3."""
+    decodes min(W, component_sizes[c] - y * W) blocks, and at least its
+    first: the host codec tests the limit after each block (leptonc.c
+    process_row), so a row that the cut leaves past the limit still
+    decodes block 0 (the JAX readers decode none of it,
+    pallas_decode.py:874).  coder: "vpx" for the streams of containers
+    v1 and v2, "ans" for those of v3."""
     if coder not in CODERS:
         raise ValueError(f"no {coder!r} reader")
     rows, lanes, streams, tables, planes, lane_request = [], [], [], [], [], []
@@ -212,7 +217,7 @@ def plan_decode(requests, coder: str = "vpx") -> DecodePlan:
                 first.setdefault(comp, y)
                 W = widths[comp]
                 ci = (0 if comp == 0 else 1) if cix is None else cix(comp)
-                rows.append((comp, ci, max(0, min(W, sizes[comp] - y * W)),
+                rows.append((comp, ci, min(W, max(1, sizes[comp] - y * W)),
                              W, int(y != first[comp]), tab0 + comp,
                              offsets[comp] + y * W))
             lanes.append((row0, len(rows) - row0, tab0, ncomp))

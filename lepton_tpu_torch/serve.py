@@ -215,6 +215,10 @@ def _process_tpu_batch(reqs, opts, wave: dict) -> None:
         wave["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
 
 
+class _Stop(BaseException):
+    """SIGTERM, raised out of _wave_loop."""
+
+
 def _serve_tpu(socks, opts) -> int:
     """Single-process device serving loop, WAVE-pipelined: drained
     requests queue up and are transcoded in waves of LEPTON_TPU_SERVE_WAVE
@@ -222,24 +226,31 @@ def _serve_tpu(socks, opts) -> int:
     connections accepted between waves join the next wave.  No
     per-connection fork (the CUDA context does not survive one); isolation
     still holds per wave through the zero-byte contract.  Returns 1 on a
-    card fault (cli.CardFault), and 0 on SIGTERM."""
-    class _Stop(BaseException):
-        pass
+    card fault (cli.CardFault), and 0 on SIGTERM.  A SIGTERM stops the
+    loop at once, except between a wave's first reply and its record on
+    stderr: there it stops the loop once the record is written, so that
+    every wave a client was answered from is logged."""
+    term = {"defer": False, "asked": False}
 
     def _on_term(signum, frame):
-        raise _Stop
+        if term["defer"]:
+            term["asked"] = True
+        else:
+            raise _Stop
 
     signal.signal(signal.SIGTERM, _on_term)
     try:
-        return _wave_loop(socks, opts)
+        return _wave_loop(socks, opts, term)
     except _Stop:
         for s, _ in socks:
             s.close()
         return 0
 
 
-def _wave_loop(socks, opts) -> int:
-    """_serve_tpu's loop: drain, serve a wave, reply, log the wave."""
+def _wave_loop(socks, opts, term=None) -> int:
+    """_serve_tpu's loop: drain, serve a wave, reply, log the wave.  term:
+    _serve_tpu's SIGTERM state (defer, asked)."""
+    term = {"defer": False, "asked": False} if term is None else term
     from .cli import CardFault, _prepare_for_jail, card_fault_exit, on_card
     # pre-import the transcode modules so fallback forks never take the
     # import lock a hung device thread could hold (_host_fallback_jailed)
@@ -316,6 +327,7 @@ def _wave_loop(socks, opts) -> int:
                 conn.close()
             return card_fault_exit(e, "tpu serving stopped: ")
         wave["transcode_s"] = time.perf_counter() - t0
+        term["defer"] = True
         t = time.perf_counter()
         for conn, zw, _, out in reqs:
             if zw and out:
@@ -337,6 +349,9 @@ def _wave_loop(socks, opts) -> int:
             f"bytes={sum(len(r[2]) for r in reqs)} "
             f"queued={len(pending)} wave={json.dumps(wave)}\n")
         sys.stderr.flush()
+        term["defer"] = False
+        if term["asked"]:
+            raise _Stop
 
 
 def serve(socket_path, listen_port, zlib_port, max_children, opts) -> int:

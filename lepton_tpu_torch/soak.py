@@ -43,12 +43,13 @@ has no reference binary.
 
 Each check has an outcome class: ok (the card and the host agree on the
 bytes), inconsistent (both refuse a stream the decoder flags), handoff_
-mismatch_shared (both re-emits fail with "handoff mismatch", the fault of
-a truncated multi-segment JPEG that neither package decodes, ROADMAP
-Queue 3, and of some corrupt streams), rejected_parse (both refuse the
-input before any segment decodes or codes: the container, its header or
-the JPEG), rejected_recode (both re-emits refuse what a corrupt stream
-decoded to, for another reason) and failed (anything else, or any
+mismatch_shared (both re-emits fail with "handoff mismatch", which a
+corrupt stream gives; the JAX package gives it on a truncated
+multi-segment JPEG too, which the port decodes: host._reemit_handoffs),
+rejected_parse (both refuse the input before any segment decodes or
+codes: the container, its header or the JPEG), rejected_recode (both
+re-emits refuse what a corrupt stream decoded to, for another reason)
+and failed (anything else, or any
 disagreement with the host codec).  A failed case's JPEG, params.json and
 a repro command go under --out.
 
@@ -61,7 +62,10 @@ through both coders.  On the card each is held against its plain version
 and launched twice for bitwise equality; a good file decodes afterwards.
 
 Run: python -m lepton_tpu_torch.soak --n N --seed S [--device cuda|cpu]
-[--out DIR] [--hostile-only].  It runs on the card unless --device cpu is
+[--out DIR] [--hostile-only].  It soaks the --n cases, then, on the
+card, the MULTI_SEGMENTS cases (gen_multi_case: JPEGs sized to code 2 to
+8 segments; every case above is one segment, a JPEG under 125,000 bytes
+of scan data codes one).  It runs on the card unless --device cpu is
 given (and raises without one), and exits 0 when every check passes, 1
 otherwise.
 """
@@ -90,6 +94,7 @@ CLASSES = ("ok", "inconsistent", "handoff_mismatch_shared", "rejected_parse",
 FLIP_FROM = 30              # past the fixed header (tools/soak.py:176)
 FLIP_SLACK = 1 << 16        # bound on a flipped container's output growth
 LMAX = 96                   # the longest hostile reader stream, bytes/words
+MULTI_SEGMENTS = (2, 4, 6, 8)   # the multi-segment cases, by segments
 
 
 # ---------------------------------------------------------------------------
@@ -97,10 +102,12 @@ LMAX = 96                   # the longest hostile reader stream, bytes/words
 # ---------------------------------------------------------------------------
 
 
-def gen_image(rng: random.Random, w: int, h: int, mode: str):
+def gen_image(rng: random.Random, w: int, h: int, mode: str, kind=None):
+    """kind: None draws it (tools/soak.py's draws), else that kind."""
     from PIL import Image
     nrng = np.random.default_rng(rng.randrange(1 << 31))
-    kind = rng.choice(["gradient", "noise", "flat", "blocks", "mixed"])
+    if kind is None:
+        kind = rng.choice(["gradient", "noise", "flat", "blocks", "mixed"])
     if kind == "flat":
         ch = np.full((h, w), rng.randrange(256), np.uint8)
     elif kind == "noise":
@@ -155,6 +162,69 @@ def gen_case(rng: random.Random, max_side=None) -> dict:
             "dqt16": rng.random() < 0.1}
 
 
+def segment_bytes(segments: int) -> int:
+    """The scan bytes from which choose_num_threads (container/handoff.py,
+    jpgcoder.cc:3898-3916) lets a JPEG code `segments` segments."""
+    return 125_000 if segments <= 2 else 250_000 if segments <= 4 \
+        else 500_000
+
+
+def gen_multi_case(rng: random.Random, segments: int) -> dict:
+    """Draw a baseline case that codes `segments` (2 to 8) segments:
+    RGB or L noise, quality 85 to 100, subsampling, optimized tables,
+    restarts, versions 1 to 3, even splits; its side is found by
+    make_multi_jpeg.  (A progressive file takes its handoffs from its DC
+    scans, whose few bytes code one segment.)"""
+    if not 2 <= segments <= 8:
+        raise ValueError(f"{segments} segments: 2 to 8")
+    mode = rng.choice(["RGB", "L"])
+    save = {"quality": rng.choice([85, 90, 95, 100])}
+    if mode == "RGB":
+        save["subsampling"] = rng.randrange(3)
+    if rng.random() < 0.4:
+        save["optimize"] = True
+    if rng.random() < 0.3:
+        save["restart_marker_blocks"] = rng.randrange(1, 9)
+    codec = {
+        "max_threads": segments,
+        "even_split": rng.random() < 0.2,
+        "version": rng.choices([1, 2, 3], weights=[5, 2, 3])[0],
+        "allow_progressive": False,
+        "allow_four_colors": False,
+    }
+    return {"mode": mode, "w": 0, "h": 0, "save": save, "codec": codec,
+            "dqt16": False, "kind": "noise", "segments": segments}
+
+
+def _codes_segments(data: bytes, segments: int) -> int:
+    """The segments host.compress(max_threads=segments) cuts data into."""
+    from .container.handoff import choose_num_threads
+    _, _, dec = host._parse(data)
+    fb = dec.handoffs[-1].segment_size - dec.handoffs[0].segment_size
+    return choose_num_threads(len(dec.handoffs), fb, segments, 1)
+
+
+def make_multi_jpeg(case: dict, rng: random.Random) -> bytes:
+    """The JPEG of a gen_multi_case case at the smallest square side, a
+    multiple of 16, at which it codes case["segments"] segments, searched
+    in steps of 16 from an estimate made at 128 px; sets w and h.  Every
+    try draws its pixels from the same seed."""
+    seed = rng.randrange(1 << 31)
+    want = case["segments"]
+
+    def make(side):
+        case["w"] = case["h"] = side
+        return make_jpeg(case, random.Random(seed))
+
+    side = 128 * (segment_bytes(want) / len(make(128))) ** 0.5
+    side = max(16, int(side) // 16 * 16)
+    while _codes_segments(make(side), want) != want:
+        side += 16
+    while side > 16 and _codes_segments(make(side - 16), want) == want:
+        side -= 16
+    return make(side)
+
+
 def rewrite_dqt_16bit(data: bytes) -> bytes:
     """Re-encode every 8-bit DQT segment as 16-bit (same values, so scan
     data stays valid): the Pq=1 parse, which PIL never emits."""
@@ -186,7 +256,8 @@ def rewrite_dqt_16bit(data: bytes) -> bytes:
 
 
 def make_jpeg(case: dict, rng: random.Random) -> bytes:
-    img = gen_image(rng, case["w"], case["h"], case["mode"])
+    img = gen_image(rng, case["w"], case["h"], case["mode"],
+                    case.get("kind"))
     buf = io.BytesIO()
     img.save(buf, "JPEG", **case["save"])
     data = buf.getvalue()
@@ -198,12 +269,19 @@ def make_jpeg(case: dict, rng: random.Random) -> bytes:
 class Case:
     """One soak case, rebuilt from (base seed, index): its params, its
     JPEG (None where PIL refused the combination) and the Random that
-    draws its truncations, flips and auxiliary path, in that order."""
+    draws its truncations, flips and auxiliary path, in that order.
+    segments: a multi-segment case of that many segments
+    (gen_multi_case), drawn from the same Random."""
 
-    def __init__(self, base_seed: int, index: int, max_side=None):
+    def __init__(self, base_seed: int, index: int, max_side=None,
+                 segments=None):
         self.index = index
         self.seed = base_seed * 1_000_003 + index
         self.rng = random.Random(self.seed)
+        if segments:
+            self.params = gen_multi_case(self.rng, segments)
+            self.jpeg = make_multi_jpeg(self.params, self.rng)
+            return
         self.params = gen_case(self.rng, max_side)
         try:
             self.jpeg = make_jpeg(self.params, self.rng)
@@ -540,16 +618,20 @@ def _save(case, report, out: str, argv: str) -> str:
 
 
 def run(n: int, seed: int = 0, device="cuda", out=DEFAULT_OUT,
-        max_side=None, log=print) -> Report:
-    """Soak n cases from `seed` on `device` (the card unless "cpu");
-    returns the Report.  A failed case is saved under `out` (None: not
-    saved).  Raises what the card raises that no request causes."""
+        max_side=None, log=print, multi=()) -> Report:
+    """Soak n cases from `seed` on `device` (the card unless "cpu"), then
+    one multi-segment case for each segment count in `multi` (indices n,
+    n + 1, ...; each must code exactly that many segments, on the card as
+    on the host); returns the Report.  A failed case is saved under `out`
+    (None: not saved).  Raises what the card raises that no request
+    causes."""
     from . import api
     dev = api._device(device)
     report = Report()
     before = _launches()
     t = time.perf_counter()
-    cases = [Case(seed, i, max_side) for i in range(n)]
+    cases = [Case(seed, i, max_side) for i in range(n)] + [
+        Case(seed, n + k, segments=m) for k, m in enumerate(multi)]
     report.skipped = sum(c.jpeg is None for c in cases)
     cases = [c for c in cases if c.jpeg is not None]
     report.cases = len(cases)
@@ -562,9 +644,15 @@ def run(n: int, seed: int = 0, device="cuda", out=DEFAULT_OUT,
     t = time.perf_counter()
     leps = report.leps = _encode_all(cases, dev, report, log)
     report.seconds["encode"] = time.perf_counter() - t
-    for lep in leps.values():
-        k = len(read_container(lep)[0].handoffs)
+    for c in cases:
+        if c.index not in leps:
+            continue
+        k = len(read_container(leps[c.index])[0].handoffs)
         report.segments[k] = report.segments.get(k, 0) + 1
+        want = c.params.get("segments")
+        if want:
+            report.add(c, "segments", "ok" if k == want else "failed",
+                       "" if k == want else f"{k} segments, not {want}")
     t = time.perf_counter()
     _decode_all(cases, leps, dev, report)
     report.seconds["decode"] = time.perf_counter() - t
@@ -678,6 +766,45 @@ def host_lanes(lep: bytes, streams) -> tuple:
             err[k] = 1
         coef[k] = np.concatenate([p.reshape(-1, 64) for p in img.planes])
     return coef, err
+
+
+def past_cut_lanes(version: int = 1) -> tuple:
+    """An early-EOF container whose cut leaves rows inside the coded
+    height but past their component's size limit, with streams coded by
+    the host's C segment coder from its planes after block 0 of each such
+    row was made non-zero: (lep, the decode request with those streams,
+    [(component, row)] of the rows past the limit).  The host codes and
+    decodes block 0 of such a row (leptonc.c process_row); a reader must
+    do the same.  A 64x64 4:2:0 JPEG cut to three fifths of its bytes, in
+    two segments, as container `version`."""
+    from PIL import Image
+
+    from . import api
+    rng = np.random.default_rng(3)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)).save(
+        buf, "JPEG", quality=80, subsampling=2)
+    cut = buf.getvalue()[:len(buf.getvalue()) * 3 // 5]
+    lep = host.compress(cut, max_threads=2, min_threads=2, version=version)
+    hdr, mux = read_container(lep)
+    _, info, dec = host._parse(cut)
+    heights, sizes = host._truncation_geometry(info, hdr)
+    handoffs, _ = host._handoffs(hdr, mux, info)
+    planes = [p.copy() for p in dec.planes]
+    past = []
+    for c in range(info.cmpc):
+        W = info.cmpnfo[c].bch
+        for y in range(heights[c]):
+            if sizes[c] <= y * W:
+                planes[c][y, 0, :3] = (5 + y, -2, 1)
+                past.append((c, y))
+    img = host._native_image(info, planes, heights, sizes)
+    enc = img.encode_segment_ans if version == 3 else img.encode_segment
+    bounds = [th.luma_y_start for th in handoffs] + [info.cmpnfo[0].bcv]
+    req = api._decode_request(lep)[0]
+    req["streams"] = [enc(bounds[k], bounds[k + 1], k == len(handoffs) - 1)
+                      for k in range(len(handoffs))]
+    return lep, req, past
 
 
 def host_diffs(plan, pairs, coef, err) -> list:
@@ -888,7 +1015,10 @@ def main(argv=None) -> int:
         print(f"soak: hostile readers {readers}; coders {coders} in "
               f"{time.perf_counter() - t:.1f} s")
         return 0
-    report = run(args.n, args.seed, args.device, args.out)
+    # the plain coder and reader take minutes on a multi-segment case's
+    # scan, so the CPU soaks the --n cases alone
+    report = run(args.n, args.seed, args.device, args.out,
+                 multi=MULTI_SEGMENTS if args.device != "cpu" else ())
     print(f"soak: {json.dumps(report.summary())}")
     for i, check, detail in report.failures:
         print(f"soak: FAIL case {i} {check}: {detail}", file=sys.stderr)

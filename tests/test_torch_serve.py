@@ -246,7 +246,9 @@ def test_tpu_server_subprocess(tmp_path):
     proc, err = _start(["-tpu", "-device=cpu", f"-socket={sock}",
                         f"-zliblisten={port}"], sock, tmp_path)
     try:
+        deadline = time.monotonic() + 120
         while "serving enabled" not in open(tmp_path / "server.err").read():
+            assert proc.poll() is None and time.monotonic() < deadline
             time.sleep(0.1)
         a = _jpeg(40, 32, seed=47, quality=85)
         b = _jpeg(32, 24, seed=48, quality=80)
