@@ -6,8 +6,9 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, before the result line):
-  1. build the five kernel sources with nvcc into build/, one nvcc a
-     source, all started together: the encode coders' probability stage
+  1. build the five kernel sources with nvcc into build/, each twice (the
+     default build and the bounds-checked one of phase 19), one nvcc a
+     build, all started together: the encode coders' probability stage
      (csrc/branch_probs.cu: run_heads and walk_runs) and their walks,
      VPX (csrc/vpx_coder.cu) and rANS (csrc/ans_coder.cu, phase 8), the
      token decoder with its VPX and rANS readers (csrc/vpx_decoder.cu,
@@ -160,6 +161,19 @@ Phases (any failure exits non-zero, before the result line):
      sweep, the one-device mesh, the -tpu server), each run held to its
      gates; the runner's object on a line of its own, and each kernel's
      launches in it (launches_bench in the kernels line).
+ 19. the bounds-checked builds (csrc/checked.cuh, -DLEPTON_CHECKED): the
+     default builds' ptxas reports equal PTXAS_BASELINE, the report from
+     before the checks were written (they compile away); then `python -m
+     lepton_tpu_torch.sanitize card` in a subprocess with
+     LEPTON_TORCH_CHECKED_KERNELS=1 on phase 4's photos: its negative
+     checks (hand-made plans and lanes whose indices leave their buffers)
+     each raise KernelBoundsError at their site, and the hostile batches
+     (soak --hostile-only), a 12-case soak and the main batch both ways
+     (v1 and v3) run clean; their outputs (.lep digests, planes, err
+     flags, the hostile batches' counts) equal the default build's on
+     the same inputs in this process, and the soak's .lep files phase
+     17's; each kernel's checked time beside its default time, and its
+     check sites.
 It prints stage times, sizes, rates and peak memory, then the card's name
 and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package
@@ -193,6 +207,30 @@ ANS_WALK_OPS_PER_SYMBOL = 20   # integer ops of one rANS-coded symbol
 PROBE_CHECK_ITERS = 2000       # steps of the probe's checksum holds
 PROBE_STEPS = 1 << 20          # steps of each timed probe chain
 SOAK_CASES, SOAK_SEED = 72, 0  # phase 17's soak
+# ptxas -v of the default builds, functions in PTX order (registers,
+# barriers, shared memory, stack and spills; nvcc 12.8 for sm_90a), from
+# before the bounds checks of csrc/checked.cuh were written: the checks
+# compile away, so phase 19 holds every default build to it
+_NO_SPILL = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+PTXAS_BASELINE = {
+    "branch_probs": [
+        _NO_SPILL, "Used 32 registers, used 1 barriers, 2080 bytes smem",
+        _NO_SPILL, "Used 32 registers, used 1 barriers, 2080 bytes smem",
+        _NO_SPILL, "Used 18 registers, used 0 barriers"],
+    "vpx_coder": [
+        _NO_SPILL, "Used 37 registers, used 1 barriers, 32776 bytes smem"],
+    "vpx_decoder": [
+        "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "Used 64 registers, used 1 barriers, 8 bytes cumulative stack size",
+        "24 bytes stack frame, 44 bytes spill stores, 24 bytes spill loads",
+        "Used 48 registers, used 1 barriers, 24 bytes cumulative stack "
+        "size"],
+    "ans_coder": [
+        _NO_SPILL, "Used 63 registers, used 1 barriers, 45056 bytes smem"],
+    "decode_roofline": [
+        line for regs in (18, 15, 9, 31, 32, 24, 30, 18, 24, 16, 22)
+        for line in (_NO_SPILL, f"Used {regs} registers, used 1 barriers")],
+}
 QUIRK_SEED = 146               # gray_q100(QUIRK_SEED, 160, 96) hits the q100
                                # quirk with PIL's libjpeg-turbo 3.1
 
@@ -716,6 +754,14 @@ def reemit_of_parse(jpeg: bytes) -> bytes:
         dec.padbit, parsed.rst_cnt, False, parsed.rst_err,
         parsed.garbage or b"\xff\xd9", parsed.jpgfilesize,
         truncated=dec.early_eof)
+
+
+def ptxas_lines(report: str) -> list:
+    """The register, barrier, shared-memory and spill lines of a ptxas -v
+    report, as PTXAS_BASELINE holds them."""
+    return [line.replace("ptxas info    :", "").strip()
+            for line in report.splitlines()
+            if "registers" in line or "spill" in line]
 
 
 def launch_counts() -> dict:
@@ -1838,7 +1884,8 @@ def phase_soak(dev, smi: str, blobs, leps, leps3) -> dict:
             "batch_decompress_device(per_request=True) call of every .lep "
             "and its truncated and bit-flipped variants, the single and "
             "auxiliary calls")
-    return {k: (v, path) for k, v in launched.items()} | {"served": served}
+    return {k: (v, path) for k, v in launched.items()} | {
+        "served": served, "leps": report.leps}
 
 
 def _soak_wave(report, tmp: str) -> dict:
@@ -1881,6 +1928,99 @@ def _soak_wave(report, tmp: str) -> dict:
     if rc != 0 or "CUDA card failure" in srv.stderr():
         fail(f"[17] the server exited with {rc}: {srv.stderr()[-3000:]}")
     return routes
+
+
+CHECKED_TIMEOUT_S = 600        # phase 19's sanitize card subprocess
+
+
+def phase_checked(dev, smi: str, blobs, leps, leps3, soak_leps) -> dict:
+    """Phase 19: the default builds' ptxas reports against PTXAS_BASELINE,
+    then sanitize card with the checked builds in a subprocess, its
+    outputs held to the default build's on the same inputs.  Returns
+    {"sites": check sites a source, "ms": {kernel row: (checked ms,
+    default ms)}}."""
+    import tempfile
+
+    import torch
+    from lepton_tpu_torch import sanitize, soak
+    from lepton_tpu_torch.kernels import cuda_build
+    t_phase = time.perf_counter()
+    for name in cuda_build.SOURCES:
+        got = ptxas_lines(cuda_build.ptxas_report[name])
+        if got != PTXAS_BASELINE[name]:
+            fail(f"[19] the default build of {name} is not what it was "
+                 f"before the checks: ptxas {got}, before "
+                 f"{PTXAS_BASELINE[name]}")
+    log(f"[19] ptxas reports of the {len(cuda_build.SOURCES)} default "
+        f"builds equal their reports from before the bounds checks "
+        f"(registers, barriers, shared memory, stack and spills)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_checked_") as tmp:
+        for k, b in enumerate(blobs):
+            with open(os.path.join(tmp, f"photo{k}.jpg"), "wb") as f:
+                f.write(b)
+        out = os.path.join(tmp, "checked.json")
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "lepton_tpu_torch.sanitize", "card",
+             "--photos", tmp, "--out", out], cwd=HERE,
+            env=dict(os.environ, **{cuda_build.CHECKED_ENV: "1"}),
+            capture_output=True, text=True, timeout=CHECKED_TIMEOUT_S)
+        child_s = time.perf_counter() - t
+        for line in r.stderr.splitlines():
+            if line.startswith("sanitize card") or line.startswith(
+                    sanitize.CLEAN_CARD):
+                log(f"[19] {line}")
+        if r.returncode != 0 or not os.path.exists(out):
+            fail(f"[19] sanitize card exited {r.returncode}: "
+                 f"{r.stderr[-4000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    if len(res["negative"]) != 6:
+        fail(f"[19] {len(res['negative'])} negative checks, not 6")
+    # the default build on the same inputs, in this process
+    t = time.perf_counter()
+    with uncounted():
+        # this process's kernels are loaded: one run, timed as it is
+        main = sanitize.main_batch(dev, blobs, runs=1)
+        readers, coders = soak.hostile_only(sanitize.HOSTILE_CASES, 0, dev)
+        torch.cuda.synchronize(dev)
+    default_s = time.perf_counter() - t
+    for v, files in (("v1", leps), ("v3", leps3)):
+        if main[v]["lep"] != [sanitize.digest(b) for b in files]:
+            fail(f"[19] {v}: the default build's main batch differs from "
+                 f"phase 4's and 9's .lep files")
+        for key in ("lep", "lep_bytes", "planes", "err", "lanes"):
+            if res["main"][v][key] != main[v][key]:
+                fail(f"[19] {v} main batch: the checked build's {key} "
+                     f"{res['main'][v][key]} differs from the default "
+                     f"build's {main[v][key]}")
+    hostile = json.loads(json.dumps({"readers": readers, "coders": coders}))
+    if res["hostile"] != hostile:
+        fail(f"[19] hostile batches: checked {res['hostile']}, default "
+             f"{hostile}")
+    for i, d in res["soak"]["leps"].items():
+        if sanitize.digest(soak_leps[int(i)]) != d:
+            fail(f"[19] soak case {i}: the checked build's .lep differs "
+                 f"from phase 17's")
+    log(f"[19] checked == default: the main batch's 64 lanes both ways "
+        f"(.lep digests, planes and err flags, v1 and v3), the hostile "
+        f"batches {hostile}, the soak's {len(res['soak']['leps'])} case "
+        f".lep files (outcome counts {res['soak']['counts']}); checked "
+        f"run {child_s:.1f} s ({json.dumps(res['seconds'])}), default "
+        f"run {default_s:.1f} s")
+    # a row's ms: v1's for the probability stage's kernels, as phase 4's
+    ms = {}
+    for v in ("v3", "v1"):
+        pairs = {k: (got, main[v]["ms"][k])
+                 for k, got in res["main"][v]["ms"].items()}
+        ms.update(pairs)
+        log(f"[19] {v} kernel ms on the main batch, checked / default "
+            f"build: " + ", ".join(f"{k} {a:.2f} / {b:.2f} ({a / b:.2f}x)"
+                                   for k, (a, b) in pairs.items()))
+    log(f"[19] check sites a source: {res['sites']}")
+    log(f"[19] phase 19 took {time.perf_counter() - t_phase:.1f} s on "
+        f"{smi}")
+    return {"sites": res["sites"], "ms": ms}
 
 
 BENCH_COUNTERS = {"vpx_coder": "vpx_walk", "run_heads": "run_heads",
@@ -1960,14 +2100,16 @@ def main() -> None:
     # ---- phase 1: build the kernels, one nvcc each, together
     builds = (("1", "branch_probs"), ("1", "vpx_coder"), ("5", "vpx_decoder"),
               ("8", "ans_coder"), ("12", "decode_roofline"))
-    took = cuda_build.build([kname for _, kname in builds])
-    for phase, kname in builds:
-        log(f"[{phase}] built "
-            f"{os.path.relpath(cuda_build.so_path(kname), HERE)} for sm_90a "
-            f"in {took[kname]:.1f} s")
-        for line in cuda_build.ptxas_report[kname].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[{phase}]   ptxas: {line.strip()}")
+    took = cuda_build.build([kname for _, kname in builds], (False, True))
+    for is_checked in (False, True):
+        for phase, kname in builds:
+            stem = cuda_build.variant(kname, is_checked)
+            phase = "19" if is_checked else phase
+            log(f"[{phase}] built "
+                f"{os.path.relpath(cuda_build.so_path(kname, is_checked), HERE)}"
+                f" for sm_90a in {took[stem]:.1f} s")
+            for line in ptxas_lines(cuda_build.ptxas_report[stem]):
+                log(f"[{phase}]   ptxas: {line}")
 
     # ---- phase 2: kernels against plain on adversarial streams
     idxs, bits = vpx_coder.build_symbol_streams(adversarial_segments())
@@ -2689,6 +2831,13 @@ def main() -> None:
         row["launches_bench"], row["bench_path"] = benched[counter] \
             if counter else (0, "on no section of the bench (phase 12's "
                                 "probe)")
+    # ---- phase 19: the bounds-checked builds
+    checked = phase_checked(dev, smi, blobs, leps, leps3, soaked["leps"])
+    for row in kernels:
+        source = os.path.splitext(os.path.basename(row["source"]))[0]
+        row["check_sites"] = checked["sites"][source]
+        row["ms_checked"], row["ms_default_phase19"] = checked["ms"].get(
+            row["name"], (None, None))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

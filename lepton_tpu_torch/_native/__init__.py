@@ -13,7 +13,11 @@ billing; and the declarations of the seccomp jail's entry
 points (leptonc.c:2912-3049), which util/sandbox.py calls.  The library is
 built with gcc at first use into the build/ directory beside the package
 (git ignores it); a library that cannot be built raises NativeUnavailable,
-and the build is not tried again in this process.  Where it cannot be
+and the build is not tried again in this process.  LEPTONC_TORCH_SO names
+another build of leptonc.c to load instead (the sanitizer build of
+sanitize.py): it is loaded as it is, never built or checked against the
+source's mtime.  The JAX package's LEPTONC_SO is not read, so a process
+that holds both packages keeps the JAX library as the reference.  Where it cannot be
 built, the host codec's compress and decompress code segments in Python
 (host.py, codec/driver.py); every other caller raises.
 """
@@ -31,6 +35,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "leptonc.c")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 _SO = os.path.join(BUILD_DIR, "libleptonc_torch.so")
+SO_ENV = "LEPTONC_TORCH_SO"
 
 _lib = None
 _failed = None        # the NativeUnavailable of a build that failed
@@ -73,14 +78,15 @@ def get_lib():
         if _failed is not None:
             raise _failed
         if _lib is None:
-            if (not os.path.exists(_SO)
-                    or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+            so = os.environ.get(SO_ENV)
+            if not so and (not os.path.exists(_SO)
+                           or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
                 try:
                     _build()
                 except (OSError, NativeUnavailable) as e:
                     _failed = NativeUnavailable(f"cannot build leptonc: {e}")
                     raise _failed
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.CDLL(so or _SO)
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.lepton_huff_table_size.argtypes = []
             lib.lepton_huff_table_size.restype = i

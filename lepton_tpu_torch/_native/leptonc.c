@@ -8,8 +8,12 @@
  *
  * Reference parity notes cite dropbox/lepton files (see SURVEY.md).
  *
- * Verbatim copy of lepton_tpu/_native/leptonc.c.  lepton_tpu_torch binds
- * only its JPEG Huffman scan decode (lepton_tpu_torch/_native/__init__.py).
+ * Copy of lepton_tpu/_native/leptonc.c, the same code.  lepton_tpu_torch
+ * binds (lepton_tpu_torch/_native/__init__.py): the JPEG Huffman scan
+ * decode and re-emit, baseline and progressive; the host segment codec
+ * (VPX and rANS encode and decode, the model template and the thread
+ * arena snapshot); the stream decoder; the host symbolizer; and the
+ * seccomp jail's entry points (util/sandbox.py).
  */
 #include <stdint.h>
 #include <stdlib.h>

@@ -44,11 +44,19 @@
 // 0 (freq 0) never reaches this kernel: the probability stage flags its
 // lane and the host raises.
 //
+// Bounds checks (checked.cuh; only with -DLEPTON_CHECKED): the staged loads
+// against L (a lane's nsyms past L reads past its row), every word store
+// against cap, nwords against the lane count.  A lane that outgrows cap is
+// no violation: the walk stops writing there by design and the wrapper
+// relaunches it.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC; bound with ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "checked.cuh"
 
 namespace {
 
@@ -62,17 +70,19 @@ constexpr uint32_t kNop = 128;         // bit 0 at prob 128
 constexpr uint32_t kSentinel = 0x101;  // bit 1 at prob 1
 
 // Warps 1-3: pairs [k0, k0 + cnt) of the lane into buf, each as
-// second | first << 16.
+// second | first << 16.  L: the lane's row (checked builds).
 __device__ __forceinline__ void stage(const uint8_t* __restrict__ lb,
                                       const uint8_t* __restrict__ lp,
                                       int64_t n, int64_t k0, int cnt,
-                                      uint32_t* buf) {
+                                      uint32_t* buf, int64_t L) {
 #pragma unroll 4
     for (int j = threadIdx.x - 32; j < cnt; j += kStagers) {
         const int64_t t = 2 * (k0 + j);
-        const uint32_t second = lp[t] | (lb[t] ? 0x100u : 0u);
+        const uint32_t second = LEP_OK(stage, t, L)
+            ? lp[t] | (lb[t] ? 0x100u : 0u) : 0u;
         const uint32_t first = t + 1 < n
-            ? lp[t + 1] | (lb[t + 1] ? 0x100u : 0u) : kSentinel;
+            ? (LEP_OK(stage, t + 1, L)
+               ? lp[t + 1] | (lb[t + 1] ? 0x100u : 0u) : 0u) : kSentinel;
         buf[j] = second | first << 16;
     }
 }
@@ -84,7 +94,9 @@ __device__ __forceinline__ void stage(const uint8_t* __restrict__ lb,
 __device__ __forceinline__ void put(uint64_t& x, const uint64_t* e,
                                     uint32_t* o, int64_t cap, int64_t& pos) {
     const bool renorm = x >= e[1];
-    if (renorm & (pos < cap)) o[pos] = static_cast<uint32_t>(x);
+    if (renorm & (pos < cap) && LEP_OK(out, pos, cap)) {
+        o[pos] = static_cast<uint32_t>(x);
+    }
     pos += renorm;
     x = renorm ? x >> 32 : x;
     const uint32_t l = static_cast<uint32_t>(e[2]) & 0xFF;
@@ -98,7 +110,7 @@ __device__ __forceinline__ void put(uint64_t& x, const uint64_t* e,
 
 __device__ __forceinline__ void emit(uint32_t w, uint32_t* o, int64_t cap,
                                      int64_t& pos) {
-    if (pos < cap) o[pos] = w;
+    if (pos < cap && LEP_OK(out, pos, cap)) o[pos] = w;
     ++pos;
 }
 
@@ -129,7 +141,7 @@ ans_walk_kernel(const uint8_t* __restrict__ probs,
     };
     if (threadIdx.x >= 32 && chunks > 0) {
         stage(lb, lp, n, (chunks - 1) * kChunkPairs, count(chunks - 1),
-              buf[(chunks - 1) & 1]);
+              buf[(chunks - 1) & 1], L);
     }
     __syncthreads();
 
@@ -145,7 +157,7 @@ ans_walk_kernel(const uint8_t* __restrict__ probs,
         if (threadIdx.x >= 32) {
             if (c > 0) {
                 stage(lb, lp, n, (c - 1) * kChunkPairs, count(c - 1),
-                      buf[(c - 1) & 1]);
+                      buf[(c - 1) & 1], L);
             }
         } else if (threadIdx.x == 0) {
             const uint32_t* b = buf[c & 1];
@@ -177,7 +189,7 @@ ans_walk_kernel(const uint8_t* __restrict__ probs,
         emit(static_cast<uint32_t>(x1), o, cap, pos);
         emit(static_cast<uint32_t>(x2 >> 32), o, cap, pos);
         emit(static_cast<uint32_t>(x2), o, cap, pos);
-        nwords[s] = static_cast<int32_t>(pos);
+        if (LEP_OK(nwords, s, gridDim.x)) nwords[s] = static_cast<int32_t>(pos);
     }
 }
 

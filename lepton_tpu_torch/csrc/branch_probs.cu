@@ -38,12 +38,18 @@
 // and written with one atomicMax a block.  Under the adv rule a run that
 // codes a 0 bit at probability 0 (freq 0, no rANS code) flags its lane.
 //
+// Bounds checks (checked.cuh; only with -DLEPTON_CHECKED): each run head's
+// slot against the key count; in walk_runs the head against the key
+// count, the key's lane against the lane count S, its branch against
+// arena_size and its position against L, and the lane's zero flag.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC; bound with ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
 #include "vpx_branch.cuh"
 
 namespace {
@@ -65,14 +71,16 @@ run_heads_kernel(const uint64_t* __restrict__ keys, int64_t n, int shift,
     unsigned long long base = 0;
     if (lane == leader) base = atomicAdd(nheads, __popc(mask));
     base = __shfl_sync(0xffffffffu, base, leader);
-    if (head) heads[base + __popc(mask & ((1u << lane) - 1))] = j;
+    if (head && LEP_OK(heads, base + __popc(mask & ((1u << lane) - 1)), n)) {
+        heads[base + __popc(mask & ((1u << lane) - 1))] = j;
+    }
 }
 
 template <bool kAdv>
 __global__ void __launch_bounds__(kThreads)
 walk_runs_kernel(const uint64_t* __restrict__ keys, int64_t n, int shift,
                     const int64_t* __restrict__ heads, int64_t nruns,
-                    int64_t arena_size, int64_t L,
+                    int64_t arena_size, int64_t S, int64_t L,
                     const int32_t* __restrict__ tpl,
                     uint8_t* __restrict__ probs, uint8_t* __restrict__ zero,
                     int32_t* __restrict__ longest) {
@@ -84,11 +92,14 @@ walk_runs_kernel(const uint64_t* __restrict__ keys, int64_t n, int shift,
                       + threadIdx.x;
     int32_t run = 0;
     if (r < nruns) {
-        const int64_t j0 = heads[r];
+        int64_t j0 = heads[r];
+        LEP_CHECK(keys, j0, n);
         uint64_t k = keys[j0];
         const uint64_t br = k >> shift;
-        const int64_t lane = static_cast<int64_t>(br / arena_size);
-        const int64_t i = static_cast<int64_t>(br) - lane * arena_size;
+        int64_t lane = static_cast<int64_t>(br / arena_size);
+        int64_t i = static_cast<int64_t>(br) - lane * arena_size;
+        LEP_CHECK(lane, lane, S);
+        LEP_CHECK(branch, i, arena_size);
         const uint64_t pmask = (1ull << (shift - 1)) - 1;
         uint8_t* lp = probs + lane * L;
         int32_t st = tpl ? tpl[i] : vpx::kIdentityBranch;
@@ -99,7 +110,9 @@ walk_runs_kernel(const uint64_t* __restrict__ keys, int64_t n, int shift,
             const uint64_t kn = j + 1 < n ? keys[j + 1] : ~0ull;
             const int b = static_cast<int>(k & 1);
             const uint32_t p = vpx::branch_prob(st);
-            lp[(k >> 1) & pmask] = static_cast<uint8_t>(p);
+            if (LEP_OK(position, (k >> 1) & pmask, L)) {
+                lp[(k >> 1) & pmask] = static_cast<uint8_t>(p);
+            }
             if (kAdv) {
                 z |= (p == 0) & !b;
                 st = vpx::update_branch_adv(st, b, rcp);
@@ -110,7 +123,7 @@ walk_runs_kernel(const uint64_t* __restrict__ keys, int64_t n, int shift,
             if ((kn >> shift) != br) break;
             k = kn;
         }
-        if (z) zero[lane] = 1;
+        if (z && LEP_OK(zero, lane, S)) zero[lane] = 1;
     }
     run = __reduce_max_sync(0xffffffffu, run);
     if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = run;
@@ -143,20 +156,21 @@ int run_heads_launch(const uint64_t* keys, int64_t n, int shift,
 }
 
 // Walks the nruns runs that start at heads, one thread a run, on
-// `stream`; returns cudaGetLastError().
+// `stream`, into probs uint8 [S, L] and zero uint8 [S] (S is read by the
+// checked build only); returns cudaGetLastError().
 int walk_runs_launch(const uint64_t* keys, int64_t n, int shift,
                      const int64_t* heads, int64_t nruns,
-                     int64_t arena_size, int64_t L, const int32_t* tpl,
-                     int adv, uint8_t* probs, uint8_t* zero,
-                     int32_t* longest, void* stream) {
+                     int64_t arena_size, int64_t S, int64_t L,
+                     const int32_t* tpl, int adv, uint8_t* probs,
+                     uint8_t* zero, int32_t* longest, void* stream) {
     auto s = static_cast<cudaStream_t>(stream);
     if (adv) {
         walk_runs_kernel<true><<<blocks(nruns), kThreads, 0, s>>>(
-            keys, n, shift, heads, nruns, arena_size, L, tpl, probs, zero,
+            keys, n, shift, heads, nruns, arena_size, S, L, tpl, probs, zero,
             longest);
     } else {
         walk_runs_kernel<false><<<blocks(nruns), kThreads, 0, s>>>(
-            keys, n, shift, heads, nruns, arena_size, L, tpl, probs, zero,
+            keys, n, shift, heads, nruns, arena_size, S, L, tpl, probs, zero,
             longest);
     }
     return static_cast<int>(cudaGetLastError());

@@ -21,11 +21,16 @@
 // Bound: nothing but the latency of each dependent step; the time over the
 // step count is the chain's cost a step on this card.
 //
+// Bounds checks (checked.cuh; only with -DLEPTON_CHECKED): each arena
+// entry a step touches against rows x 128.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC; bound with ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "checked.cuh"
 
 namespace {
 
@@ -47,6 +52,7 @@ __device__ __forceinline__ int32_t alu12(int32_t x, int32_t i) {
 __device__ __forceinline__ int32_t rmw(int32_t* a, int32_t x, int32_t i,
                                        int rows) {
     int32_t* p = a + ((x + i) & (rows - 1)) * kLanes + (x & (kLanes - 1));
+    if (!LEP_OK(arena, p - a, rows * kLanes)) return x;
     const int32_t v = *p;
     *p = v + 1;
     return (x + v) & 0xFFFF;

@@ -31,12 +31,19 @@
 // 0xFF bytes, as vpx_write does.  The stop-byte rule is applied on the
 // host.  PAD anywhere is a no-op; FIXED_PROB arrives as probability 128.
 //
+// Bounds checks (checked.cuh; only with -DLEPTON_CHECKED): the staged loads
+// against L, every output store and the carry ripple against cap, nbytes
+// against the lane count.  A lane that outgrows cap is no violation: the
+// walk stops writing there by design and the wrapper relaunches it.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC; bound with ctypes.
 
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
+
+#include "checked.cuh"
 
 namespace {
 
@@ -61,7 +68,7 @@ __device__ __forceinline__ void stage(const int32_t* __restrict__ li,
 #pragma unroll 4
     for (int j = threadIdx.x - 32; j < padded; j += kStagers) {
         const int64_t t = t0 + j;
-        const bool p = j >= cnt || li[t] == kPad;
+        const bool p = j >= cnt || !LEP_OK(stage, t, L) || li[t] == kPad;
         pad |= p;
         buf[j] = static_cast<uint16_t>(p ? kPadFlag
                                          : (lp[t] | (lb[t] ? kBit : 0u)));
@@ -95,14 +102,16 @@ __device__ __forceinline__ void code(uint32_t v, uint32_t& low, uint32_t& rng,
             // carry: +1 ripples back over 0xFF bytes
             int64_t x = pos - 1;
             if (x < cap) {
-                while (x >= 0 && o[x] == 0xFF) {
+                while (x >= 0 && LEP_OK(carry, x, cap) && o[x] == 0xFF) {
                     o[x] = 0;
                     --x;
                 }
-                if (x >= 0) ++o[x];
+                if (x >= 0 && LEP_OK(carry, x, cap)) ++o[x];
             }
         }
-        if (pos < cap) o[pos] = static_cast<uint8_t>(low >> (24 - offset));
+        if (pos < cap && LEP_OK(out, pos, cap)) {
+            o[pos] = static_cast<uint8_t>(low >> (24 - offset));
+        }
         ++pos;
         low = ((low << offset) & 0xFFFFFF) << count;
         count -= 8;
@@ -171,7 +180,9 @@ vpx_walk_kernel(const int32_t* __restrict__ idx,
         }
         __syncthreads();
     }
-    if (threadIdx.x == 0) nbytes[s] = static_cast<int32_t>(pos);
+    if (threadIdx.x == 0 && LEP_OK(nbytes, s, gridDim.x)) {
+        nbytes[s] = static_cast<int32_t>(pos);
+    }
 }
 
 }  // namespace

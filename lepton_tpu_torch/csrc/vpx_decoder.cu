@@ -72,12 +72,20 @@
 // predictions, int16 wraps on stores, IDCT outputs, edge estimates and
 // summaries.
 //
+// Bounds checks (checked.cuh; compiled in only with -DLEPTON_CHECKED): the
+// row and table descriptors against the row count, kMaxTables and the
+// table count; the above block, each block store and the ring against the
+// planes' block count, ring_slots and ring_width; every branch-cache slot;
+// the arena index after its clamp; the stream's bytes and words against
+// lmax; err and counts against the lane count.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC; bound with ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
 #include "vpx_branch.cuh"
 
 namespace {
@@ -154,11 +162,12 @@ struct VpxReader {
     uint32_t value;
     uint32_t rng;
     int32_t count;
+    int64_t lim;                 // the lane's row of bytes (checked builds)
 
     __device__ VpxReader(const void* data, int64_t lmax, int64_t s,
                          int32_t dlen)
         : p(static_cast<const uint8_t*>(data) + s * lmax), len(dlen), pos(0),
-          value(0), rng(255), count(-8) {
+          value(0), rng(255), count(-8), lim(lmax) {
         bit(128);
     }
 
@@ -173,7 +182,7 @@ struct VpxReader {
             uint32_t add = 0;
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-                if (j < take) {
+                if (j < take && LEP_OK(vpx_bytes, pos + j, lim)) {
                     add |= static_cast<uint32_t>(p[pos + j]) << (shift - 8 * j);
                 }
             }
@@ -215,18 +224,19 @@ struct AnsReader {
     int32_t pos;
     uint64_t r0, r1;
     uint32_t next;
+    int64_t lim;                 // the lane's row of words (checked builds)
 
     __device__ AnsReader(const void* data, int64_t lmax, int64_t s,
                          int32_t dlen)
         : w(static_cast<const uint32_t*>(data) + s * lmax), nwords(dlen),
-          pos(4) {
+          pos(4), lim(lmax) {
         r0 = word(0) | static_cast<uint64_t>(word(1)) << 32;
         r1 = word(2) | static_cast<uint64_t>(word(3)) << 32;
         next = word(pos);
     }
 
     __device__ __forceinline__ uint32_t word(int32_t k) const {
-        return k < nwords ? w[k] : 0;
+        return k < nwords && LEP_OK(ans_words, k, lim) ? w[k] : 0;
     }
 
     __device__ __forceinline__ int bit(uint32_t prob) {
@@ -264,6 +274,7 @@ __device__ __forceinline__ int2 cache_miss(uint2* cache, uint32_t slots,
                                         uint32_t key, uint32_t h) {
     uint32_t slot = h;
     for (int i = 0; i < kProbes; ++i) {
+        LEP_CHECK(cache_probe, slot, slots);
         const uint2 e = cache[slot];
         if (e.y == key) {
             return make_int2(static_cast<int32_t>(e.x),
@@ -303,9 +314,12 @@ struct Model {
     // kernel clamps), then the branch update of R's coder
     __device__ __forceinline__ int read(int idx) {
         idx = min(max(idx, 0), arena_size - 1);
+        LEP_CHECK(arena, idx, arena_size);
         const uint32_t key = static_cast<uint32_t>(idx) + 1;
-        const uint32_t h = __umulhi(key * kHashMul, slots);
+        uint32_t h = __umulhi(key * kHashMul, slots);
+        LEP_CHECK(cache_home, h, slots);
         const uint2 e = cache[h];
+        LEP_CHECK(cache_pending, pslot, slots);
         cache[pslot].x = static_cast<uint32_t>(pval);
         int32_t packed = static_cast<int>(h) == pslot
                              ? pval : static_cast<int32_t>(e.x);
@@ -460,14 +474,14 @@ __global__ void __launch_bounds__(kThreads)
 vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
                    const int32_t* __restrict__ dlen,
                    const int32_t* __restrict__ lanes,
-                   const int32_t* __restrict__ rows,
-                   const int32_t* __restrict__ tables,
+                   const int32_t* __restrict__ rows, int64_t n_rows,
+                   const int32_t* __restrict__ tables, int n_tables,
                    const int32_t* __restrict__ luts,
                    const int32_t* __restrict__ tpl, int32_t* __restrict__ arena,
                    int arena_size, int32_t* __restrict__ ring, int ring_slots,
                    int ring_width, int16_t* __restrict__ coef,
-                   int32_t* __restrict__ err, uint32_t slots,
-                   int32_t* __restrict__ counts) {
+                   int64_t n_blocks, int32_t* __restrict__ err,
+                   uint32_t slots, int32_t* __restrict__ counts) {
     extern __shared__ __align__(16) unsigned char smem[];
     Shared& sm = *reinterpret_cast<Shared*>(smem);
     uint2* cache = reinterpret_cast<uint2*>(smem + kFixedSmem);
@@ -475,7 +489,9 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
 
     const int64_t s = blockIdx.x;
     const int32_t* ln = lanes + s * kLaneFields;
-    const int row0 = ln[0], nrows = ln[1], tab0 = ln[2], ntab = ln[3];
+    const int row0 = ln[0], nrows = ln[1], tab0 = ln[2];
+    int ntab = ln[3];
+    LEP_CHECK(ntab, ntab, kMaxTables + 1);
     int32_t* a = arena + s * arena_size;
     for (int k = threadIdx.x; k < arena_size; k += kThreads) {
         a[k] = tpl ? tpl[k] : vpx::kIdentityBranch;
@@ -486,7 +502,8 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
     for (int k = threadIdx.x; k < kLuts; k += kThreads) sm.lut[k] = luts[k];
     vpx::fill_recip(sm.rcp, threadIdx.x, kThreads);
     for (int k = threadIdx.x; k < ntab * 4 * 64; k += kThreads) {
-        sm.tab[k] = tables[static_cast<int64_t>(tab0) * 4 * 64 + k];
+        const int64_t t = static_cast<int64_t>(tab0) * 4 * 64 + k;
+        sm.tab[k] = LEP_OK(tables, t, n_tables * 4 * 64LL) ? tables[t] : 0;
     }
     __syncthreads();
     if (threadIdx.x >= 32) return;
@@ -498,10 +515,19 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
     int32_t* lane_ring = ring + s * static_cast<int64_t>(ring_slots) * kSummary;
 
     for (int ri = 0; ri < nrows; ++ri) {
-        const int32_t* rd_ = rows + static_cast<int64_t>(row0 + ri) * kRowFields;
-        const int comp = rd_[0], ci = rd_[1], width = rd_[2], W = rd_[3];
+        int64_t r = row0 + ri;
+        LEP_CHECK(row, r, n_rows);
+        const int32_t* rd_ = rows + r * kRowFields;
+        int comp = rd_[0];
+        const int ci = rd_[1];
+        int width = rd_[2];
+        const int W = rd_[3];
+        LEP_CHECK(ring_comp, comp, ring_width > 0 ? ring_slots / ring_width : 0);
+        LEP_CHECK(ring_x, width, ring_width + 1);    // x < width <= ring_width
         const bool ha = rd_[4] != 0;
-        const int32_t* quant = sm.tab + (rd_[5] - tab0) * 4 * 64;
+        int ct = rd_[5] - tab0;
+        LEP_CHECK(ctab, ct, ntab);
+        const int32_t* quant = sm.tab + ct * 4 * 64;
         const int32_t* icx = quant + 64;
         const int32_t* icy = quant + 128;
         const int32_t* mnt = quant + 192;
@@ -521,8 +547,10 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
         uint32_t above_w = 0;
         int32_t summ_w = 0;
         if (ha && width > 0) {
-            above_w = reinterpret_cast<const uint32_t*>(
-                coef + (out_block - W) * 64)[lane];
+            if (LEP_OK(above, out_block - W, n_blocks)) {
+                above_w = reinterpret_cast<const uint32_t*>(
+                    coef + (out_block - W) * 64)[lane];
+            }
             if (lane < kSummary) summ_w = ringc[lane];
         }
 
@@ -538,8 +566,10 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
             sm.here[2 * lane + 1] = 0;
             if (lane < kSummary) sm.summ_a[lane] = summ_w;
             if (ha && x + 1 < width) {
-                above_w = reinterpret_cast<const uint32_t*>(
-                    out + 64 - static_cast<int64_t>(W) * 64)[lane];
+                if (LEP_OK(above, out_block + x + 1 - W, n_blocks)) {
+                    above_w = reinterpret_cast<const uint32_t*>(
+                        out + 64 - static_cast<int64_t>(W) * 64)[lane];
+                }
                 if (lane < kSummary) summ_w = summ[kSummary + lane];
             }
             __syncwarp();
@@ -768,9 +798,11 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
             }
             const int32_t v0 = wrap16(lane == 0 ? dc : sm.here[2 * lane]);
             const int32_t v1 = wrap16(sm.here[2 * lane + 1]);
-            reinterpret_cast<uint32_t*>(out)[lane] =
-                (static_cast<uint32_t>(v0) & 0xFFFF)
-                | (static_cast<uint32_t>(v1) << 16);
+            if (LEP_OK(coef, out_block + x, n_blocks)) {
+                reinterpret_cast<uint32_t*>(out)[lane] =
+                    (static_cast<uint32_t>(v0) & 0xFFFF)
+                    | (static_cast<uint32_t>(v1) << 16);
+            }
             sm.left[2 * lane] = v0;
             sm.left[2 * lane + 1] = v1;
             sm.al[2 * lane] = sm.above[2 * lane];
@@ -779,7 +811,7 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
             __syncwarp();
         }
     }
-    if (lane == 0) {
+    if (lane == 0 && LEP_OK(err, s, gridDim.x)) {
         err[s] = lane_err;
         counts[2 * s] = rd.inserts;
         counts[2 * s + 1] = rd.falls;
@@ -789,9 +821,10 @@ vpx_decoder_kernel(const void* __restrict__ data, int64_t lmax,
 template <class R>
 int launch(const void* data, int64_t lmax, const int32_t* dlen,
            const int32_t* lanes, int64_t S, const int32_t* rows,
-           const int32_t* tables, const int32_t* luts, const int32_t* tpl,
-           int32_t* arena, int arena_size, int32_t* ring, int ring_slots,
-           int ring_width, int16_t* coef, int32_t* err, uint32_t slots,
+           int64_t n_rows, const int32_t* tables, int n_tables,
+           const int32_t* luts, const int32_t* tpl, int32_t* arena,
+           int arena_size, int32_t* ring, int ring_slots, int ring_width,
+           int16_t* coef, int64_t n_blocks, int32_t* err, uint32_t slots,
            int32_t* counts, cudaStream_t st) {
     const size_t smem = kFixedSmem + static_cast<size_t>(slots) * 8;
     cudaError_t rc = cudaFuncSetAttribute(
@@ -799,8 +832,9 @@ int launch(const void* data, int64_t lmax, const int32_t* dlen,
         static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
     vpx_decoder_kernel<R><<<static_cast<unsigned>(S), kThreads, smem, st>>>(
-        data, lmax, dlen, lanes, rows, tables, luts, tpl, arena, arena_size,
-        ring, ring_slots, ring_width, coef, err, slots, counts);
+        data, lmax, dlen, lanes, rows, n_rows, tables, n_tables, luts, tpl,
+        arena, arena_size, ring, ring_slots, ring_width, coef, n_blocks, err,
+        slots, counts);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -811,21 +845,24 @@ extern "C" {
 // Launches one CTA per lane on `stream` with the VPX reader (coder 0; data
 // uint8 [S, lmax] bytes) or the rANS reader (coder 1; data uint32
 // [S, lmax] words, dlen in words), each CTA with a branch cache of `slots`
-// entries; counts int32 [S, 2] receives each lane's cache inserts and
-// reads that fell through to the arena.  Returns the error of raising the
-// kernel's shared-memory limit, else cudaGetLastError().
+// entries; rows int32 [n_rows, 7], tables int32 [n_tables, 4, 64], coef
+// int16 [n_blocks, 64] (the sizes are read by the checked build only);
+// counts int32 [S, 2] receives each lane's cache inserts and reads that
+// fell through to the arena.  Returns the error of raising the kernel's
+// shared-memory limit, else cudaGetLastError().
 int vpx_decoder_launch(const void* data, int64_t lmax, const int32_t* dlen,
                        const int32_t* lanes, int64_t S, const int32_t* rows,
-                       const int32_t* tables, const int32_t* luts,
-                       const int32_t* tpl, int32_t* arena, int arena_size,
-                       int32_t* ring, int ring_slots, int ring_width,
-                       int16_t* coef, int32_t* err, int slots,
+                       int64_t n_rows, const int32_t* tables, int n_tables,
+                       const int32_t* luts, const int32_t* tpl,
+                       int32_t* arena, int arena_size, int32_t* ring,
+                       int ring_slots, int ring_width, int16_t* coef,
+                       int64_t n_blocks, int32_t* err, int slots,
                        int32_t* counts, int coder, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     auto* fn = coder == 1 ? launch<AnsReader> : launch<VpxReader>;
-    return fn(data, lmax, dlen, lanes, S, rows, tables, luts, tpl, arena,
-              arena_size, ring, ring_slots, ring_width, coef, err,
-              static_cast<uint32_t>(slots), counts, st);
+    return fn(data, lmax, dlen, lanes, S, rows, n_rows, tables, n_tables,
+              luts, tpl, arena, arena_size, ring, ring_slots, ring_width,
+              coef, n_blocks, err, static_cast<uint32_t>(slots), counts, st);
 }
 
 const char* vpx_decoder_error_string(int err) {

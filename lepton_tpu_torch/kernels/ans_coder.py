@@ -181,14 +181,15 @@ def ans_walk(probs: torch.Tensor, bit: torch.Tensor, nsyms: torch.Tensor):
     def launch(c):
         out = torch.empty((S, c), dtype=torch.int32, device=dev)
         nwords = torch.empty(S, dtype=torch.int32, device=dev)
-        err = lib.ans_walk_launch(probs.data_ptr(), bit.data_ptr(), S, L,
-                                  nsyms.data_ptr(), table.data_ptr(),
-                                  out.data_ptr(), c, nwords.data_ptr(),
-                                  stream)
-        cuda_build.count_launch(ans_walk)
-        if err:
-            raise RuntimeError("ans_coder launch failed: "
-                               + lib.ans_walk_error_string(err).decode())
+        with cuda_build.bounds(lib, stream):
+            err = lib.ans_walk_launch(probs.data_ptr(), bit.data_ptr(), S,
+                                      L, nsyms.data_ptr(), table.data_ptr(),
+                                      out.data_ptr(), c, nwords.data_ptr(),
+                                      stream)
+            cuda_build.count_launch(ans_walk)
+            if err:
+                raise RuntimeError("ans_coder launch failed: "
+                                   + lib.ans_walk_error_string(err).decode())
         return out, nwords
 
     return bp.grow(launch, cap)

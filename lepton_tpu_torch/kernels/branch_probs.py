@@ -124,8 +124,8 @@ def _get_lib():
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.run_heads_launch.argtypes = [p, i64, i, p, p, p]
             lib.run_heads_launch.restype = i
-            lib.walk_runs_launch.argtypes = [p, i64, i, p, i64, i64, i64, p,
-                                             i, p, p, p, p]
+            lib.walk_runs_launch.argtypes = [p, i64, i, p, i64, i64, i64,
+                                             i64, p, i, p, p, p, p]
             lib.walk_runs_launch.restype = i
             lib.branch_probs_error_string.argtypes = [i]
             lib.branch_probs_error_string.restype = ctypes.c_char_p
@@ -263,10 +263,12 @@ def run_heads(keys: torch.Tensor, shift: int) -> torch.Tensor:
     keys = keys.contiguous()
     heads = torch.empty(n, dtype=torch.int64, device=keys.device)
     nheads = torch.zeros(1, dtype=torch.int64, device=keys.device)
-    err = lib.run_heads_launch(keys.data_ptr(), n, shift, heads.data_ptr(),
-                               nheads.data_ptr(), stream)
-    cuda_build.count_launch(run_heads)
-    _raise_on(lib, err)
+    with cuda_build.bounds(lib, stream, per_lane=False):
+        err = lib.run_heads_launch(keys.data_ptr(), n, shift,
+                                   heads.data_ptr(), nheads.data_ptr(),
+                                   stream)
+        cuda_build.count_launch(run_heads)
+        _raise_on(lib, err)
     return heads[:int(nheads)]
 
 
@@ -306,13 +308,15 @@ def walk_runs(keys: torch.Tensor, shift: int, heads: torch.Tensor, shape,
     if template is not None:
         template = template.contiguous()
     longest = torch.zeros(1, dtype=torch.int32, device=dev)
-    err = lib.walk_runs_launch(
-        keys.data_ptr(), keys.numel(), shift, heads.data_ptr(), len(heads),
-        ARENA_SIZE, L, None if template is None else template.data_ptr(),
-        int(rule == "adv"), probs.data_ptr(), zero.data_ptr(),
-        longest.data_ptr(), stream)
-    cuda_build.count_launch(walk_runs)
-    _raise_on(lib, err)
+    with cuda_build.bounds(lib, stream, per_lane=False):
+        err = lib.walk_runs_launch(
+            keys.data_ptr(), keys.numel(), shift, heads.data_ptr(),
+            len(heads), ARENA_SIZE, S, L,
+            None if template is None else template.data_ptr(),
+            int(rule == "adv"), probs.data_ptr(), zero.data_ptr(),
+            longest.data_ptr(), stream)
+        cuda_build.count_launch(walk_runs)
+        _raise_on(lib, err)
     return probs, zero != 0, int(longest)
 
 

@@ -135,13 +135,14 @@ def vpx_walk(idx: torch.Tensor, bit: torch.Tensor, probs: torch.Tensor):
     def launch(c):
         out = torch.empty((S, c), dtype=torch.uint8, device=dev)
         nbytes = torch.empty(S, dtype=torch.int32, device=dev)
-        err = lib.vpx_walk_launch(idx.data_ptr(), bit.data_ptr(),
-                                  probs.data_ptr(), S, L, out.data_ptr(), c,
-                                  nbytes.data_ptr(), stream)
-        cuda_build.count_launch(vpx_walk)
-        if err:
-            raise RuntimeError("vpx_coder launch failed: "
-                               + lib.vpx_walk_error_string(err).decode())
+        with cuda_build.bounds(lib, stream):
+            err = lib.vpx_walk_launch(idx.data_ptr(), bit.data_ptr(),
+                                      probs.data_ptr(), S, L, out.data_ptr(),
+                                      c, nbytes.data_ptr(), stream)
+            cuda_build.count_launch(vpx_walk)
+            if err:
+                raise RuntimeError("vpx_coder launch failed: "
+                                   + lib.vpx_walk_error_string(err).decode())
         return out, nbytes
 
     return bp.grow(launch, cap)

@@ -324,7 +324,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of csrc/vpx_decoder.cu."""
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.vpx_decoder_launch.argtypes = [
-        p, i64, p, p, i64, p, p, p, p, p, i, p, i, i, p, p, i, p, i, p]
+        p, i64, p, p, i64, p, i64, p, i, p, p, p, i, p, i, i, p, i64, p, i,
+        p, i, p]
     lib.vpx_decoder_launch.restype = i
     lib.vpx_decoder_error_string.argtypes = [i]
     lib.vpx_decoder_error_string.restype = ctypes.c_char_p
@@ -427,6 +428,19 @@ def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
         raise ValueError(f"no token decoder for device {data.device}")
     _check(data, dlen, lanes, rows, tables, ring_width, ring_comps,
            n_blocks, template, coder)
+    return launch_lanes(data, dlen, lanes, rows, tables, ring_width,
+                        ring_comps, n_blocks, template, coder)
+
+
+def launch_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
+                 rows: torch.Tensor, tables: torch.Tensor, ring_width: int,
+                 ring_comps: int, n_blocks: int,
+                 template: Optional[torch.Tensor] = None,
+                 coder: str = "vpx"):
+    """decode_lanes on CUDA tensors without its host checks of the plan's
+    indices: the kernel's launch alone, for the checked build's negative
+    checks (sanitize.py), which hand it plans that decode_lanes refuses.
+    Counted as decode_lanes' launches."""
     dev = data.device
     S = data.shape[0]
     coef = torch.zeros((n_blocks, 64), dtype=torch.int16, device=dev)
@@ -448,22 +462,24 @@ def decode_lanes(data: torch.Tensor, dlen: torch.Tensor, lanes: torch.Tensor,
     ring = torch.empty((S, ring_comps * ring_width, SUMMARY),
                        dtype=torch.int32, device=dev)
     counts = torch.zeros((S, 2), dtype=torch.int32, device=dev)
-    rc = lib.vpx_decoder_launch(
-        data.data_ptr(), data.shape[1], dlen.data_ptr(), lanes.data_ptr(), S,
-        rows.data_ptr(), tables.data_ptr(), luts.data_ptr(),
-        None if template is None else template.data_ptr(),
-        arena.data_ptr(), ARENA_SIZE, ring.data_ptr(), ring_comps * ring_width,
-        ring_width, coef.data_ptr(), err.data_ptr(), slots,
-        counts.data_ptr(), CODERS[coder],
-        torch.cuda.current_stream(dev).cuda_stream)
-    if coder == "ans":
-        cuda_build.count_launch(decode_lanes, "ans_launches")
-    else:
-        cuda_build.count_launch(decode_lanes)
-    decode_lanes.cache_counts = counts
-    if rc:
-        raise RuntimeError("vpx_decoder launch failed: "
-                           + lib.vpx_decoder_error_string(rc).decode())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with cuda_build.bounds(lib, stream):
+        rc = lib.vpx_decoder_launch(
+            data.data_ptr(), data.shape[1], dlen.data_ptr(), lanes.data_ptr(),
+            S, rows.data_ptr(), rows.shape[0], tables.data_ptr(),
+            tables.shape[0], luts.data_ptr(),
+            None if template is None else template.data_ptr(),
+            arena.data_ptr(), ARENA_SIZE, ring.data_ptr(),
+            ring_comps * ring_width, ring_width, coef.data_ptr(), n_blocks,
+            err.data_ptr(), slots, counts.data_ptr(), CODERS[coder], stream)
+        if coder == "ans":
+            cuda_build.count_launch(decode_lanes, "ans_launches")
+        else:
+            cuda_build.count_launch(decode_lanes)
+        decode_lanes.cache_counts = counts
+        if rc:
+            raise RuntimeError("vpx_decoder launch failed: "
+                               + lib.vpx_decoder_error_string(rc).decode())
     return coef, err
 
 

@@ -71,14 +71,17 @@ def probe(kind: str, n_iter: int, K: int = 1, shared: bool = False,
     out = torch.empty(1, dtype=torch.int32, device=dev)
     arena = None if shared or kind == "alu" else torch.empty(
         (rows, LANES), dtype=torch.int32, device=dev)
-    rc = lib.decode_roofline_launch(
-        KINDS[kind], K, int(shared), n_iter, rows,
-        None if arena is None else arena.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    probe.launches += 1
-    if rc:
-        raise RuntimeError("decode_roofline launch failed: "
-                           + lib.decode_roofline_error_string(rc).decode())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with cuda_build.bounds(lib, stream, per_lane=False):
+        rc = lib.decode_roofline_launch(
+            KINDS[kind], K, int(shared), n_iter, rows,
+            None if arena is None else arena.data_ptr(), out.data_ptr(),
+            stream)
+        probe.launches += 1
+        if rc:
+            raise RuntimeError("decode_roofline launch failed: "
+                               + lib.decode_roofline_error_string(rc)
+                               .decode())
     return out
 
 

@@ -985,6 +985,20 @@ def hostile_coders(device="cuda", seed: int = 0) -> dict:
     return out
 
 
+def hostile_only(n: int, seed: int = 0, device="cuda") -> tuple:
+    """--hostile-only: the hostile reader batches over the host codec's
+    containers of the first n cases of `seed`, then the hostile coder
+    lanes.  Returns (hostile_readers', hostile_coders' results)."""
+    leps = []
+    for i in range(n):
+        c = Case(seed, i)
+        lep = c.jpeg and attempt(host.compress, c.jpeg, **c.host_kw())
+        if isinstance(lep, (bytes, bytearray)):
+            leps.append(bytes(lep))
+    return (hostile_readers(device, leps, seed),
+            hostile_coders(device, seed))
+
+
 # ---------------------------------------------------------------------------
 # Command line
 # ---------------------------------------------------------------------------
@@ -1004,14 +1018,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t = time.perf_counter()
     if args.hostile_only:
-        leps = []
-        for i in range(args.n):
-            c = Case(args.seed, i)
-            lep = c.jpeg and attempt(host.compress, c.jpeg, **c.host_kw())
-            if isinstance(lep, (bytes, bytearray)):
-                leps.append(bytes(lep))
-        readers = hostile_readers(args.device, leps, args.seed)
-        coders = hostile_coders(args.device, args.seed)
+        readers, coders = hostile_only(args.n, args.seed, args.device)
         print(f"soak: hostile readers {readers}; coders {coders} in "
               f"{time.perf_counter() - t:.1f} s")
         return 0

@@ -2,7 +2,8 @@
 stage and the VPX and rANS walks) and the decoder kernel (both readers)
 against their plain versions, the roofline probe against its plain loop,
 and the whole encode and decode, containers v1 to v3, on cuda against the
-same on the CPU.
+same on the CPU; and the bounds-checked builds (in subprocesses): their
+negative checks raise, and their outputs equal the default builds'.
 
 This file imports no JAX, so it runs where only torch is installed:
 
@@ -12,6 +13,10 @@ Without a card every test skips.  Streams, planes and JPEGs are compared
 byte for byte: the tolerance is zero.
 """
 import io
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -19,8 +24,9 @@ import torch
 from PIL import Image
 
 import chip_smoke
-from lepton_tpu_torch import api
-from lepton_tpu_torch.kernels import ans_coder, vpx_coder, vpx_decoder
+from lepton_tpu_torch import api, sanitize
+from lepton_tpu_torch.kernels import (ans_coder, cuda_build, vpx_coder,
+                                      vpx_decoder)
 from lepton_tpu_torch.kernels import branch_probs as bp
 from lepton_tpu_torch.model.tables import ARENA_SIZE, arena_from_template
 from lepton_tpu_torch.probes import decode_roofline
@@ -639,3 +645,59 @@ def test_python_segment_codec_equals_card_coder(cuda, version):
     bounds = desc["splits_y"] + [info.cmpnfo[0].bcv]
     assert card == [encode_segment(image, bounds[i], bounds[i + 1], i == 3,
                                    ans=version == 3) for i in range(4)]
+
+
+# ---------------------------------------------------------------------------
+# The bounds-checked builds (csrc/checked.cuh, sanitize.py card): each runs
+# in a subprocess, since a process loads one build of each library
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHASE6 = ((1, 64, 48), (2, 96, 64), (4, 96, 64))   # chip_smoke phase 6
+
+
+def _checked(script: str):
+    """The JSON object that `script` prints last, run with the checked
+    builds (LEPTON_TORCH_CHECKED_KERNELS=1)."""
+    env = dict(os.environ, **{cuda_build.CHECKED_ENV: "1"})
+    r = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.cuda
+def test_checked_negative_checks_raise(cuda):
+    """Every negative check of sanitize.negative_checks (decoder plans
+    whose out_block, ntab, rows or stream leave their buffers; a rANS lane
+    past its row; a run head past the keys) raises KernelBoundsError at
+    its own site, and a good plan decodes after them."""
+    got = _checked("import json, torch\n"
+                   "from lepton_tpu_torch import sanitize\n"
+                   "print(json.dumps(sanitize.negative_checks("
+                   "torch.device('cuda'))))")
+    assert len(got) == 6
+    for what, msg in got.items():
+        assert "outside [0, " in msg and "lepton_tpu_torch/csrc/" in msg, \
+            (what, msg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nseg,w,h", PHASE6)
+def test_checked_equals_default(cuda, nseg, w, h):
+    """The checked build's .lep files, planes and err flags equal the
+    default build's on phase 6's JPEGs (v1 and v3, both directions)."""
+    seed = chip_smoke.SEED + 20 + nseg
+    got = _checked(
+        "import json, torch\n"
+        "import chip_smoke\n"
+        "from lepton_tpu_torch import sanitize\n"
+        f"blobs = [chip_smoke.make_photo({seed}, {w}, {h}, 85)]\n"
+        "print(json.dumps(sanitize.main_batch(torch.device('cuda'), blobs, "
+        f"runs=1, segments={nseg})))")
+    want = sanitize.main_batch(cuda, [chip_smoke.make_photo(seed, w, h, 85)],
+                               runs=1, segments=nseg)
+    for v in ("v1", "v3"):
+        got[v].pop("ms")
+        want[v].pop("ms")
+    assert got == want
