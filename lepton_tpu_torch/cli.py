@@ -83,7 +83,8 @@ Usage: python -m lepton_tpu_torch [switches] input_file [output_file]
 
 # the kernels of the -tpu paths: the coders' probability stage and walks,
 # and the token decoder with both readers
-PATH_KERNELS = ("branch_probs", "vpx_coder", "ans_coder", "vpx_decoder")
+PATH_KERNELS = ("symbolize", "branch_probs", "vpx_coder", "ans_coder",
+                "vpx_decoder")
 
 
 def sniff(data: bytes) -> str:

@@ -5,11 +5,13 @@ for VPX lanes (containers v1 and v2) and rANS lanes (container v3).  The
 stages, in data-flow order:
 
   1. copy each coefficient plane to the device as int16;
-  2. symbolize it (kernels/symbolize.py) in row chunks, with the row above
-     each chunk as context, and row_has_above False at row 0 and at
-     segment tops;
-  3. compact each chunk's live symbols in emission order (a boolean mask
-     keeps row-major order) and count them per row;
+  2. phase A over the whole plane (kernels/contexts.py), with
+     row_has_above False at row 0 and at segment tops;
+  3. symbolize it (kernels/symbolize.py): symbol_counts gives each
+     block's count of live symbols, an exclusive sum of them each block's
+     offset, one host read the plane's total, and emit_symbols writes the
+     live symbols in emission order, with no slab (on the card the two
+     kernels of csrc/symbolize.cu; on a CPU plane their plain versions);
   4. fetch all per-row counts in one copy to the host;
   5. assemble each lane (one per segment): for VPX the marker bit, the
      segment's rows in plan_rows order, then the 32 stop bits; for rANS
@@ -42,13 +44,12 @@ import torch
 from ..host import LeptonError
 from ..model.tables import arena_from_template
 from .ans_coder import encode_streams_ans, finalize_ans
+from .branch_probs import add_pending, timed
 from .encode_pipeline import plan_rows, segment_top_rows
-from .symbolize import COEF_OUT_OF_RANGE, symbolize_slice
+from .symbolize import (emit_symbols, emit_symbols_plain, plane_inputs,
+                        symbol_counts, symbol_runs_plain)
 from .vpx_coder import FIXED_PROB, PAD, encode_streams, finalize
 
-# blocks symbolized per call: bounds the [rows, W, BLOCK_SLOTS] slab and its
-# intermediates to about a gigabyte
-BLOCK_BUDGET = 1 << 15
 STOP_BITS = 32
 
 def _sync(dev: torch.device) -> None:
@@ -58,36 +59,67 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.current_stream(dev).synchronize()
 
 
+def _kernel_route(dev: torch.device) -> bool:
+    """Whether planes on dev go through the symbol kernels (the card) or
+    through their plain versions (a CPU).  chip_smoke.py's plain route
+    replaces it to time the plain versions on the card."""
+    return dev.type == "cuda"
+
+
 def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
-                     size_limit: int):
-    """Live symbols of one plane in emission order, and its per-row counts.
+                     size_limit: int, stats=None, pending=None):
+    """Live symbols of one plane in emission order, and its per-row counts:
+    phase A over the whole plane, symbol_counts, offsets from an exclusive
+    sum of the counts, one host read of the plane's total, emit_symbols.
+    On a CPU plane their plain versions share one slab (symbol_runs_plain).
+    stats, pending: the two kernels' CUDA-event times (branch_probs.timed).
 
     Returns (idx int32 [N], bit uint8 [N], counts int64 [H]) on the plane's
-    device; a row with a value past 11 bits counts -1 (symbolize_slice's
-    COEF_OUT_OF_RANGE)."""
-    H, W = coefs.shape[0], coefs.shape[1]
+    device; a row with a value past 11 bits counts -1."""
     dev = coefs.device
-    quant, icx, icy, mnt = (
-        torch.as_tensor(np.asarray(a, np.int32), device=dev)
-        for a in (ct.quant, ct.icos_idct_edge_8192_dequantized_x,
-                  ct.icos_idct_edge_8192_dequantized_y,
-                  ct.min_noise_threshold))
-    rha = torch.as_tensor(row_has_above, device=dev)
-    rows = max(1, BLOCK_BUDGET // max(W, 1))
-    parts_i, parts_b, counts = [], [], []
-    for r0 in range(0, H, rows):
-        r1 = min(H, r0 + rows)
-        lo = max(r0 - 1, 0)        # the row above: context only, dropped
-        idx, bit = symbolize_slice(coefs[lo:r1], ci, quant, icx, icy, mnt,
-                                   lo * W, size_limit, rha[lo:r1])
-        idx, bit = idx[r0 - lo:], bit[r0 - lo:]
-        live = idx != PAD
-        over = (idx[..., 0] == COEF_OUT_OF_RANGE).any(dim=1)
-        counts.append(torch.where(over, -1, live.sum(dim=(1, 2))))
-        parts_i.append(idx[live])
-        parts_b.append(bit[live])
-        del idx, bit, live
-    return torch.cat(parts_i), torch.cat(parts_b), torch.cat(counts)
+    plane = plane_inputs(coefs, ci, ct, row_has_above, size_limit)
+    kernels = _kernel_route(dev)
+    if kernels:
+        counts, over = timed(lambda: symbol_counts(plane), dev, stats,
+                             "symbol_counts_ms", pending)
+    else:
+        runs = symbol_runs_plain(plane)
+        counts, over = runs[:2]
+    flat = counts.reshape(-1).to(torch.int64)
+    ends = torch.cumsum(flat, 0)
+    offsets = (ends - flat).reshape(counts.shape)
+    rows = torch.where(over.any(dim=1), -1, counts.sum(dim=1))
+    total = int(ends[-1])
+    if kernels:
+        idx, bit = timed(lambda: emit_symbols(plane, offsets, total), dev,
+                         stats, "symbol_emit_ms", pending)
+    else:
+        idx, bit = emit_symbols_plain(plane, offsets, total, runs)
+    return idx, bit, rows
+
+
+def image_plan(im) -> list:
+    """plan_rows of one image's description (symbolize_images)."""
+    return plan_rows([p.shape[0] for p in im["planes"]], im["mcuv"],
+                     im["max_coded_heights"], im["splits_y"])
+
+
+def image_planes(im, plan, dev):
+    """Each plane of one image as _symbolize_plane takes it: (component,
+    int16 coefficients [H, W, 64] copied to dev, the model's colour index,
+    its ColorTables, row_has_above (False at row 0 and at each segment's
+    top row), size_limit)."""
+    cix = im.get("color_index")
+    tops = segment_top_rows(plan, len(im["planes"]))
+    for c, p in enumerate(im["planes"]):
+        rha = np.ones(p.shape[0], dtype=bool)
+        rha[0] = False
+        rha[sorted(tops[c])] = False
+        ci = (0 if c == 0 else 1) if cix is None else cix(c)
+        coefs = torch.as_tensor(np.ascontiguousarray(p, dtype=np.int16),
+                                device=dev)
+        yield (c, coefs, ci, im["color_tables"][c], rha,
+               im["component_sizes"][c])
 
 
 def _ranges(segment_range, plans) -> list:
@@ -135,31 +167,20 @@ def symbolize_images(images, device="cuda", stats=None,
     in lepton_tpu/kernels/encode_pipeline.py (:276-390) restricts them for
     one process's share.  An image with segments to code is symbolized
     whole, as its top-row masks depend on every split; one without is not
-    symbolized.  stats: optional dict that receives symbolize_s."""
+    symbolized.  stats: optional dict that receives symbolize_s and, on
+    the card, the symbol kernels' CUDA-event ms summed over the planes
+    (symbol_counts_ms, symbol_emit_ms)."""
     dev = torch.device(device)
     stats = {} if stats is None else stats
     t = time.perf_counter()
-    sym_i, sym_b, counts, plane_base = [], [], [], {}
-    plans = [plan_rows([p.shape[0] for p in im["planes"]], im["mcuv"],
-                       im["max_coded_heights"], im["splits_y"])
-             for im in images]
+    sym_i, sym_b, counts, plane_base, pending = [], [], [], {}, []
+    plans = [image_plan(im) for im in images]
     ranges = _ranges(segment_range, plans)
     for d, (im, plan) in enumerate(zip(images, plans)):
         if ranges[d][0] == ranges[d][1]:
             continue                # no lane of this image: nothing to code
-        ncomp = len(im["planes"])
-        cix = im.get("color_index")
-        heights = [p.shape[0] for p in im["planes"]]
-        tops = segment_top_rows(plan, ncomp)
-        for c in range(ncomp):
-            rha = np.ones(heights[c], dtype=bool)
-            rha[0] = False
-            rha[sorted(tops[c])] = False
-            ci = (0 if c == 0 else 1) if cix is None else cix(c)
-            coefs = torch.as_tensor(np.ascontiguousarray(
-                im["planes"][c], dtype=np.int16), device=dev)
-            i_, b_, n_ = _symbolize_plane(coefs, ci, im["color_tables"][c],
-                                          rha, im["component_sizes"][c])
+        for c, *args in image_planes(im, plan, dev):
+            i_, b_, n_ = _symbolize_plane(*args, stats, pending)
             sym_i.append(i_)
             sym_b.append(b_)
             counts.append(n_)
@@ -180,6 +201,7 @@ def symbolize_images(images, device="cuda", stats=None,
         else torch.zeros(0, dtype=torch.uint8, device=dev)
     _sync(dev)
     stats["symbolize_s"] = time.perf_counter() - t
+    add_pending(stats, pending)
     return Symbols(sym_i, sym_b, row_counts, row_off, first_row, plane_base,
                    plans, ranges)
 

@@ -101,9 +101,11 @@ def grow(walk, cap: int):
         cap = need
 
 
-def timed(fn, dev, stats, key):
+def timed(fn, dev, stats, key, pending=None):
     """fn(), with its CUDA-event time in stats[key] when stats is given and
-    dev is a CUDA device."""
+    dev is a CUDA device.  pending: a list that takes (key, start, end) in
+    place of the wait, for the caller to add to stats after a later sync
+    (add_pending)."""
     if stats is None or dev.type != "cuda":
         return fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -111,9 +113,19 @@ def timed(fn, dev, stats, key):
     start.record()
     r = fn()
     end.record()
+    if pending is not None:
+        pending.append((key, start, end))
+        return r
     end.synchronize()
     stats[key] = start.elapsed_time(end)
     return r
+
+
+def add_pending(stats, pending) -> None:
+    """Add the times of timed's pending events to stats, summed by key;
+    their work must have ended."""
+    for key, start, end in pending:
+        stats[key] = stats.get(key, 0.0) + start.elapsed_time(end)
 
 
 def _get_lib():

@@ -37,8 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 CHECKED_FLAGS = ["-DLEPTON_CHECKED", "-lineinfo"]
 CHECKED_ENV = "LEPTON_TORCH_CHECKED_KERNELS"
 # every kernel source of the port
-SOURCES = ("branch_probs", "vpx_coder", "ans_coder", "vpx_decoder",
-           "decode_roofline")
+SOURCES = ("symbolize", "branch_probs", "vpx_coder", "ans_coder",
+           "vpx_decoder", "decode_roofline")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas's report (registers, shared memory, spills) of each build, by

@@ -172,7 +172,9 @@ PROBE_CHAINS = (("rmw", 1), ("rmw", 2), ("rmw", 4), ("rmw", 8),
 # the kernels' CUDA-event times in the main batch's stats, by the kernel
 # rows of chip_smoke.py (a coder's: the whole coder, sort, probability
 # stage and walk)
-STAT_MS = {"run_heads": "heads_ms", "walk_runs": "runs_ms",
+STAT_MS = {"symbol_counts": "symbol_counts_ms",
+           "symbol_emit": "symbol_emit_ms",
+           "run_heads": "heads_ms", "walk_runs": "runs_ms",
            "vpx_coder": "coder_ms", "ans_coder": "ans_coder_ms",
            "vpx_decoder": "vpx_decoder_ms", "ans_reader": "ans_decoder_ms"}
 
@@ -235,7 +237,8 @@ def main_batch(dev, blobs, runs: int = 2, segments: int = SEGMENTS) -> dict:
             lep=[digest(b) for b in leps], lep_bytes=sum(map(len, leps)),
             planes=digest(coef), err=int(err.sum()), lanes=len(err),
             ms={k: stats.get(STAT_MS[k])
-                for k in ("run_heads", "walk_runs", walk, reader)})
+                for k in ("symbol_counts", "symbol_emit", "run_heads",
+                          "walk_runs", walk, reader)})
     return out
 
 
@@ -264,15 +267,17 @@ def negative_checks(dev) -> dict:
     checked too).  A coder lane whose output outgrows its cap is no
     violation (the walk stops writing at cap and the wrapper relaunches
     it), so the coders' checks are a rANS lane whose symbol count runs
-    past its row and a run head past the keys.  After them a good plan
-    decodes: the record was cleared and the context survived."""
+    past its row and a run head past the keys; symbol_emit's is an offset
+    table that overruns its output.  After them a good plan decodes: the
+    record was cleared and the context survived."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from . import api, soak
-    from .kernels import ans_coder, branch_probs, vpx_decoder
+    from .kernels import ans_coder, branch_probs, symbolize, vpx_decoder
+    from .model.context import ColorTables
     lep = soak.tiny_container(1)
     plan = vpx_decoder.plan_decode([api._decode_request(lep)[0]], "vpx")
 
@@ -318,6 +323,15 @@ def negative_checks(dev) -> dict:
     what = "a run head past the keys"
     out[what] = _expect(what, "keys", lambda: branch_probs.walk_runs(
         keys, shift, heads, idx.shape))
+    plane = symbolize.plane_inputs(
+        torch.zeros((2, 3, 64), dtype=torch.int16, device=dev), 0,
+        ColorTables(np.ones(64, np.int64)), np.array([False, True]), 6)
+    counts, _ = symbolize.symbol_counts(plane)
+    n = counts.reshape(-1).to(torch.int64)
+    offsets = (torch.cumsum(n, 0) - n + 1).reshape(counts.shape)
+    what = "symbol offsets one past their packed place"
+    out[what] = _expect(what, "out", lambda: symbolize.emit_symbols(
+        plane, offsets, int(n.sum())))
     coef, err = vpx_decoder.decode_lanes(**plan.to(dev))
     if err.any():
         raise AssertionError("the good plan decodes flagged after the "

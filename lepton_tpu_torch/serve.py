@@ -129,8 +129,11 @@ def _host_fallback(data: bytes, opts) -> bytes:
 
 def _launches() -> dict:
     """The launch counters of the -tpu path's kernels."""
-    from .kernels import ans_coder, branch_probs, vpx_coder, vpx_decoder
-    return dict(run_heads=branch_probs.run_heads.launches,
+    from .kernels import (ans_coder, branch_probs, symbolize, vpx_coder,
+                          vpx_decoder)
+    return dict(symbol_counts=symbolize.symbol_counts.launches,
+                symbol_emit=symbolize.emit_symbols.launches,
+                run_heads=branch_probs.run_heads.launches,
                 walk_runs=branch_probs.walk_runs.launches,
                 vpx_walk=vpx_coder.vpx_walk.launches,
                 ans_walk=ans_coder.ans_walk.launches,

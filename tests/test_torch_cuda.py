@@ -1,4 +1,5 @@
-"""The port on a CUDA card: the encode coders' kernels (the probability
+"""The port on a CUDA card: symbolize's kernels (symbol_counts and
+symbol_emit), the encode coders' kernels (the probability
 stage and the VPX and rANS walks) and the decoder kernel (both readers)
 against their plain versions, the roofline probe against its plain loop,
 and the whole encode and decode, containers v1 to v3, on cuda against the
@@ -25,8 +26,8 @@ from PIL import Image
 
 import chip_smoke
 from lepton_tpu_torch import api, sanitize
-from lepton_tpu_torch.kernels import (ans_coder, cuda_build, vpx_coder,
-                                      vpx_decoder)
+from lepton_tpu_torch.kernels import (ans_coder, batch_encode, cuda_build,
+                                      symbolize, vpx_coder, vpx_decoder)
 from lepton_tpu_torch.kernels import branch_probs as bp
 from lepton_tpu_torch.model.tables import ARENA_SIZE, arena_from_template
 from lepton_tpu_torch.probes import decode_roofline
@@ -465,12 +466,62 @@ def test_cuda_path_never_runs_plain(cuda, monkeypatch):
                       (bp, "run_heads_plain"),
                       (bp, "walk_runs_plain"),
                       (bp, "arena_probs_plain"),
+                      (symbolize, "symbol_counts_plain"),
+                      (symbolize, "emit_symbols_plain"),
+                      (symbolize, "symbol_runs_plain"),
+                      (batch_encode, "symbol_runs_plain"),
+                      (batch_encode, "emit_symbols_plain"),
+                      (symbolize, "symbolize_slice"),
                       (vpx_decoder, "decode_lanes_plain")):
         monkeypatch.setattr(mod, name, boom)
     data = chip_smoke.make_photo(6, 96, 64)
     leps = [api.compress_device(data, num_segments=2, version=v)
             for v in (1, 2, 3)]
     assert api.batch_decompress_device(leps) == [data] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["11-bit AC coefficients",
+                                  "a value past 11 bits",
+                                  "a past-cut size_limit",
+                                  "segment-top rows"])
+def test_symbol_kernels_match_plain(cuda, what):
+    """symbol_counts and symbol_emit on the card equal their plain
+    versions on the same CUDA planes (counts, flags, idx, bit), one launch
+    of each; a flagged block's first symbol is COEF_OUT_OF_RANGE."""
+    plane = chip_smoke.hostile_planes(cuda)[what]
+    before = (symbolize.symbol_counts.launches,
+              symbolize.emit_symbols.launches)
+    counts, over = symbolize.symbol_counts(plane)
+    pc, po = symbolize.symbol_counts_plain(plane)
+    assert torch.equal(counts, pc) and torch.equal(over, po)
+    assert over.any().item() == (what == "a value past 11 bits")
+    n = counts.reshape(-1).to(torch.int64)
+    offsets = (torch.cumsum(n, 0) - n).reshape(counts.shape)
+    idx, bit = symbolize.emit_symbols(plane, offsets, int(n.sum()))
+    pi, pb = symbolize.emit_symbols_plain(plane, offsets, int(n.sum()))
+    assert torch.equal(idx, pi) and torch.equal(bit, pb)
+    assert (symbolize.symbol_counts.launches,
+            symbolize.emit_symbols.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    first = offsets.reshape(-1)[over.reshape(-1)]
+    assert (idx[first] == symbolize.COEF_OUT_OF_RANGE).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k", [("RGB", 4), ("CMYK", 3)])
+def test_symbolize_images_cuda_equals_cpu(cuda, mode, k):
+    """symbolize_images on the card (the two kernels, two launches a
+    plane) gives the symbols, row counts and offsets of its plain route
+    on the CPU: a photo in k segments, and a 4-component one."""
+    data = chip_smoke.make_photo(64, 160, 96, mode=mode)
+    _, info, dec = api._parse(data, allow_four_colors=True)
+    desc = api._describe(info, dec, api._plan(dec, k)[0])
+    before = symbolize.emit_symbols.launches
+    got = batch_encode.symbolize_images([desc], cuda)
+    assert symbolize.emit_symbols.launches - before == len(desc["planes"])
+    want = batch_encode.symbolize_images([desc], "cpu")
+    assert chip_smoke.symbols_equal(got.to("cpu"), want)
 
 
 @pytest.mark.cuda
@@ -522,7 +573,8 @@ def test_mode_x_and_four_colors_cuda_equals_cpu(cuda, kind, version):
 @pytest.mark.cuda
 def test_serve_wave_cuda_equals_cpu(cuda):
     """A small mixed wave through serve._process_tpu_batch answers on cuda
-    what it answers on cpu: two JPEGs (one coder launch of each kernel),
+    what it answers on cpu: two JPEGs (one coder launch of each kernel,
+    one launch of each symbol kernel a plane),
     a v1 and a v3 .lep (one launch of each reader), every host-route
     count 0, every JPEG reply verified; the parse runs in jailed
     children, as the -tpu server runs it."""
@@ -544,8 +596,8 @@ def test_serve_wave_cuda_equals_cpu(cuda):
     assert not any(waves["cuda"]["host"].values())
     assert waves["cuda"]["verified"] == 2
     assert waves["cuda"]["launches"] == dict(
-        run_heads=1, walk_runs=1, vpx_walk=1, ans_walk=0, vpx_reader=1,
-        ans_reader=1)
+        symbol_counts=6, symbol_emit=6, run_heads=1, walk_runs=1,
+        vpx_walk=1, ans_walk=0, vpx_reader=1, ans_reader=1)
 
 
 @pytest.mark.cuda
@@ -592,7 +644,8 @@ def test_segment_range_cuda_equals_cpu(cuda, version):
 @pytest.mark.cuda
 def test_two_process_encode_on_one_card(cuda, tmp_path):
     """distributed_compress in two processes that share the card (each
-    rank's coder kernels launched once on its 2 lanes) writes the bytes
+    rank's coder kernels launched once on its 2 lanes, its symbol kernels
+    once a plane of the whole image) writes the bytes
     of the one-process call, and they decode back."""
     from lepton_tpu_torch.parallel import multihost
     jpeg = chip_smoke.make_photo(63, 96, 64)
@@ -604,7 +657,8 @@ def test_two_process_encode_on_one_card(cuda, tmp_path):
     for lep, st in ranks:
         assert lep == world1
         assert st["lanes"] == 2
-        assert st["launches"] == dict(run_heads=1, walk_runs=1, vpx_walk=1)
+        assert st["launches"] == dict(symbol_counts=3, symbol_emit=3,
+                                      run_heads=1, walk_runs=1, vpx_walk=1)
     assert api.decompress_device(world1) == jpeg
 
 
@@ -670,13 +724,14 @@ def _checked(script: str):
 def test_checked_negative_checks_raise(cuda):
     """Every negative check of sanitize.negative_checks (decoder plans
     whose out_block, ntab, rows or stream leave their buffers; a rANS lane
-    past its row; a run head past the keys) raises KernelBoundsError at
-    its own site, and a good plan decodes after them."""
+    past its row; a run head past the keys; symbol offsets past the
+    output) raises KernelBoundsError at its own site, and a good plan
+    decodes after them."""
     got = _checked("import json, torch\n"
                    "from lepton_tpu_torch import sanitize\n"
                    "print(json.dumps(sanitize.negative_checks("
                    "torch.device('cuda'))))")
-    assert len(got) == 6
+    assert len(got) == 7
     for what, msg in got.items():
         assert "outside [0, " in msg and "lepton_tpu_torch/csrc/" in msg, \
             (what, msg)
