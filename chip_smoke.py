@@ -9,8 +9,8 @@ Phases (any failure exits non-zero, before the result line):
   1. build the six kernel sources with nvcc into build/, each twice (the
      default build and the bounds-checked one of phase 19), one nvcc a
      build, all started together: symbolize (csrc/symbolize.cu:
-     symbol_counts and symbol_emit, phase 20), the encode coders'
-     probability stage
+     symbol_counts and symbol_emit, which compute phase A from the
+     coefficients, phase 20), the encode coders' probability stage
      (csrc/branch_probs.cu: run_heads and walk_runs) and their walks,
      VPX (csrc/vpx_coder.cu) and rANS (csrc/ans_coder.cu, phase 8), the
      token decoder with its VPX and rANS readers (csrc/vpx_decoder.cu,
@@ -22,7 +22,7 @@ Phases (any failure exits non-zero, before the result line):
      under a trained-template start arena, the stage lanes (empty,
      one-symbol, odd and even lanes, FIXED_PROB and PAD slots, one branch
      past both count overflows, a template's prob-0 branch), and a framed
-     10k-symbol prefix of every lane of the full-size batch of phase 4;
+     PREFIX-symbol prefix of every lane of the full-size batch of phase 4;
   3. encode small images on cuda and on cpu: equal .lep bytes;
   4. the main path: batch_compress_device on four synthetic 12 MP
      4032x3024 4:2:0 q90 JPEGs, 16 segments each (64 coder lanes), with the
@@ -36,21 +36,25 @@ Phases (any failure exits non-zero, before the result line):
      kernels against their plain versions, launched on the card with
      zero tolerance: symbol_counts (each block's live symbols and
      over-range flag) and symbol_emit (the symbols at each block's
-     offset) on all 12 planes of the main batch, the whole route's
+     offset), both from the coefficients alone, against phase A and the
+     slab, on all 12 planes of the main batch, the whole route's
      symbols, row counts and VPX and rANS lanes against the plain route's
      on the same CUDA planes, and small hostile planes (11- and 12-bit
-     coefficients, a past-cut size_limit, segment-top rows) and a
-     4-component photo; each kernel timed with CUDA events over many
-     warm launches beside its bound by bytes; the whole stage and the
-     whole encode both ways in turns (plain, kernel, kernel, plain) with
-     symbolize_s, wall and peak memory; a torch.profiler trace of one warm
-     symbolize_images on each route (top device ops, device-busy share);
+     coefficients, a past-cut size_limit, segment-top rows, values that
+     wrap phase A's int32 and int16 arithmetic, a dense plane that fills
+     the kernel's staging buffer) and a 4-component photo; each kernel
+     timed with CUDA events over many warm launches beside its bound
+     (symbol_bytes); the whole stage and the whole encode both ways in
+     turns (plain, kernel, kernel, plain) with symbolize_s, wall and peak
+     memory; a torch.profiler trace of one warm symbolize_images on each
+     route (top device ops, device ops a plane, device-busy share);
   5. (the decoder's build is part of phase 1)
   6. hold the decoder against its plain PyTorch version on CUDA tensors:
-     small JPEGs encoded on the card with 1, 2 and 4 segments, from the
-     identity arena and from phase 2's trained template, and one
-     two-request call of different geometry and quality; planes and err
-     flags must be equal, and the planes those of the JPEG's own parse;
+     small JPEGs (SMALL_DECODES) encoded on the card with 1, 2 and 4
+     segments, from the identity arena and from phase 2's trained
+     template, and one two-request call of different geometry and
+     quality; planes and err flags must be equal, and the planes those of
+     the JPEG's own parse;
   7. the main decode path: batch_decompress_device on phase 4's four .lep
      files, with the decoder's launch count read around it; each result
      must be its original JPEG byte for byte, the device planes those of
@@ -60,7 +64,7 @@ Phases (any failure exits non-zero, before the result line):
      branches a lane.  Then the
      decoder is timed again on all 64 lanes and on the longest lane alone,
      and held against its plain version on all 64 lanes of the main path,
-     each cut to its first two rows a component of at most a dozen
+     each cut to its first CUT_ROWS rows a component of at most CUT_WIDTH
      blocks, with plane widths,
      output offsets, ring and plane sizes as the main path gives them;
   8. hold the ANS coder's kernels against their plain versions on CUDA
@@ -69,8 +73,8 @@ Phases (any failure exits non-zero, before the result line):
      lanes (empty, one symbol, odd and even counts, one branch past both
      count overflows, a long lane), the same from the template, the stage
      lanes, a template's prob-0 branch (a 1 bit there codes; a 0 bit,
-     freq 0, raises as in the plain version), and an unframed 10k-symbol
-     prefix of all 64 v3 lanes of phase 9;
+     freq 0, raises as in the plain version), and an unframed
+     ANS_PREFIX-symbol prefix of all 64 v3 lanes of phase 9;
   9. the v3 main path: batch_compress_device(version=3) on phase 4's four
      JPEGs, with the launches of the probability stage's two kernels and
      the rANS walk read around it (one each); image 0 alone gives the
@@ -82,8 +86,9 @@ Phases (any failure exits non-zero, before the result line):
      probability stage and walk) and the rANS reader are timed again on
      all 64 lanes and on the longest lane alone;
  10. hold the rANS reader against its plain version: small v3 files with
-     1, 2 and 4 segments, one from the template, and phase 9's 64 lanes
-     cut to one row a component of a dozen blocks;
+     1, 2 and 4 segments (SMALL_DECODES), one from the template, and
+     phase 9's 64 lanes cut to ANS_CUT_ROWS row a component of
+     ANS_CUT_WIDTH blocks;
  11. one batch_decompress_device call with v1, v2 and v3 requests, a
      mode-X (progressive) and a CMYK one among them: one launch of each
      reader, and every original JPEG back;
@@ -180,7 +185,7 @@ Phases (any failure exits non-zero, before the result line):
  19. the bounds-checked builds (csrc/checked.cuh, -DLEPTON_CHECKED): the
      default builds' ptxas reports equal PTXAS_BASELINE, the report from
      before the checks were written (they compile away; symbolize's from
-     its first build, checks included); then `python -m
+     the build of its redesigned source, checks included); then `python -m
      lepton_tpu_torch.sanitize card` in a subprocess with
      LEPTON_TORCH_CHECKED_KERNELS=1 on phase 4's photos: its negative
      checks (hand-made plans and lanes whose indices leave their buffers)
@@ -211,7 +216,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20240601
-PREFIX = 20000                 # symbols per lane in the phase-2 prefix cut
+PREFIX = 5000                  # symbols per lane in the phase-2 prefix cut
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_SCALAR_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 WALK_OPS_PER_SYMBOL = 15       # integer ops of one VPX-coded symbol, roughly
@@ -219,12 +224,27 @@ PROBS_OPS_PER_SYMBOL = 15      # integer ops of one branch update, roughly
 HEADS_OPS_PER_KEY = 4          # integer ops of one key's run-start test
 DECODER_OPS_PER_READ = 40      # integer ops of one decoded read, roughly
 SYMBOL_OPS_PER_SYMBOL = 8      # integer ops of one symbol of the walk, roughly
+# integer ops of one block's phase A in csrc/symbolize.cu, roughly: its
+# IDCT (about 900), its nonzero count (100) and its DC prediction (150);
+# the contexts each walk step reads count in SYMBOL_OPS_PER_SYMBOL
+PHASE_A_OPS_PER_BLOCK = 1150
+# the symbol kernels' bound by bytes, the same work whatever computes it
+# (symbolize_slice takes coefficients to symbols): symbol_counts reads a
+# block's 128 B of coefficients and writes its count (4 B) and flag (1 B);
+# symbol_emit reads the coefficients and the block's offset (8 B) and
+# writes each symbol's branch (4 B) and bit (1 B)
+SYMBOL_COUNTS_BYTES_PER_BLOCK = 128 + 4 + 1
+SYMBOL_EMIT_BYTES_PER_BLOCK = 128 + 8
+SYMBOL_EMIT_BYTES_PER_SYMBOL = 4 + 1
 SYMBOL_TIMED_RUNS = 20         # warm launches of phase 20's kernel times
+SLEEP_CYCLES = 200_000_000     # about 0.1 s of the card's clock
 STOP_BITS = 32                 # coded after each lane's last symbol
-CUT_ROWS, CUT_WIDTH = 2, 12    # phase-7 cut of the main path's lanes
-ANS_PREFIX = 10000             # symbols per lane in the phase-8 prefix cut
-ANS_CUT_ROWS, ANS_CUT_WIDTH = 1, 12   # phase-10 cut of the v3 lanes
+CUT_ROWS, CUT_WIDTH = 1, 6     # phase-7 cut of the main path's lanes
+ANS_PREFIX = 3000              # symbols per lane in the phase-8 prefix cut
+ANS_CUT_ROWS, ANS_CUT_WIDTH = 1, 6    # phase-10 cut of the v3 lanes
 ANS_WALK_OPS_PER_SYMBOL = 20   # integer ops of one rANS-coded symbol
+# (segments, width, height) of the small files of phases 6 and 10
+SMALL_DECODES = ((1, 48, 32), (2, 64, 32), (4, 64, 64))
 PROBE_CHECK_ITERS = 2000       # steps of the probe's checksum holds
 PROBE_STEPS = 1 << 20          # steps of each timed probe chain
 SOAK_CASES, SOAK_SEED = 72, 0  # phase 17's soak
@@ -235,8 +255,8 @@ SOAK_CASES, SOAK_SEED = 72, 0  # phase 17's soak
 _NO_SPILL = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 PTXAS_BASELINE = {
     "symbolize": [
-        _NO_SPILL, "Used 48 registers, used 1 barriers, 812 bytes smem",
-        _NO_SPILL, "Used 19 registers, used 1 barriers, 812 bytes smem"],
+        _NO_SPILL, "Used 96 registers, used 1 barriers, 39824 bytes smem",
+        _NO_SPILL, "Used 48 registers, used 1 barriers, 39824 bytes smem"],
     "branch_probs": [
         _NO_SPILL, "Used 32 registers, used 1 barriers, 2080 bytes smem",
         _NO_SPILL, "Used 32 registers, used 1 barriers, 2080 bytes smem",
@@ -862,32 +882,12 @@ def compare_symbols(plane, what: str) -> dict:
                 blocks=counts.numel(), plain_ms=(pc_ms, pe_ms))
 
 
-def symbol_reads(plane) -> tuple:
-    """(bytes, live blocks): what the symbol walk of csrc/symbolize.cu
-    reads of this plane's data, each element once.  A live block reads
-    its nz7x7 (1 B), the 7 + 7 edge coefficients and the DC one (2 B
-    each), dc_pred and the two uncertainties (12 B); the interior loop
-    reads a coefficient (2 B) and its aavrg (4 B) at each zigzag step up
-    to the last nonzero interior coefficient, and each edge loop a lak
-    (4 B) up to its last nonzero coefficient.  Blocks past size_limit (but
-    block 0 of a row) read nothing; the neighbours' nz7x7 are their own
-    blocks' bytes, counted there."""
-    import torch
-    from lepton_tpu_torch import constants as C
-
-    def steps(nonzero):         # loop steps to the last nonzero, 0 if none
-        k = nonzero.shape[1]
-        last = k - torch.argmax(nonzero.flip(1).to(torch.uint8), dim=1)
-        return torch.where(nonzero.any(1), last, 0)
-
-    W = plane.coefs.shape[1]
-    co = plane.coefs.reshape(-1, 64)
-    b = torch.arange(co.shape[0], device=co.device)
-    live = (plane.row_block_offset + b < plane.size_limit) | (b % W == 0)
-    zz = torch.as_tensor(np.asarray(C.UNZIGZAG49), device=co.device)
-    per = (6 * steps(co[:, zz] != 0) + 4 * steps(co[:, 1:8] != 0)
-           + 4 * steps(co[:, 8::8] != 0) + 1 + 2 * 15 + 12)
-    return int(per[live].sum()), int(live.sum())
+def symbol_bytes(blocks: int, symbols: int) -> tuple:
+    """(symbol_counts' bytes, symbol_emit's bytes) behind their bounds, for
+    planes of `blocks` blocks that code `symbols` symbols."""
+    return (blocks * SYMBOL_COUNTS_BYTES_PER_BLOCK,
+            blocks * SYMBOL_EMIT_BYTES_PER_BLOCK
+            + symbols * SYMBOL_EMIT_BYTES_PER_SYMBOL)
 
 
 def symbols_equal(a, b) -> bool:
@@ -901,7 +901,12 @@ def symbols_equal(a, b) -> bool:
 
 def hostile_planes(dev) -> dict:
     """Small seeded planes at the symbol kernels' edges, as Planes on dev:
-    {what: plane}."""
+    {what: plane}.  Besides 11- and 12-bit coefficients, a cut and
+    segment-top rows: coefficients at +-2047 and +-32767 with quantizers
+    up to 65535, which wrap phase A's int32 and int16 arithmetic, and a
+    dense plane of 40 blocks a row, every coefficient nonzero and about
+    10 bits (over 1,000 symbols a block, as q100 photos come near), whose
+    tiles of csrc/symbolize.cu stage their symbols in many rounds."""
     import torch
     from lepton_tpu_torch.kernels import symbolize as S
     from lepton_tpu_torch.model.context import ColorTables
@@ -912,29 +917,43 @@ def hostile_planes(dev) -> dict:
             ("a value past 11 bits", 2, 1, {(2, 1, 20): 3000,
                                             (0, 4, 8): -2048}, [0], 0),
             ("a past-cut size_limit", 3, 0, {}, [0, 3], 40),
-            ("segment-top rows", 4, 1, {}, [0, 2, 5, 8], 0)):
+            ("segment-top rows", 4, 1, {}, [0, 2, 5, 8], 0),
+            ("wrap-inducing coefficients", 5, 0, {}, [0, 4], 0),
+            ("a dense plane", 6, 1, {}, [0, 3], 0)):
         rng = np.random.default_rng(SEED + seed)
+        H, W = (6, 40) if what == "a dense plane" else (9, 13)
         freq = np.add.outer(np.arange(8), np.arange(8)).reshape(64)
         coefs = np.round(rng.laplace(0, 60.0 / (1 + freq) ** 1.3,
-                                     (9, 13, 64))).astype(np.int64)
-        coefs[rng.random((9, 13, 64)) < 0.02 * freq] = 0
-        coefs[..., 0] = rng.integers(-1000, 1000, (9, 13))
-        coefs = np.clip(coefs, -1023, 1023).astype(np.int16)
+                                     (H, W, 64))).astype(np.int64)
+        coefs[rng.random((H, W, 64)) < 0.02 * freq] = 0
+        coefs[..., 0] = rng.integers(-1000, 1000, (H, W))
+        q = rng.integers(1, 60, 64)
+        if what == "wrap-inducing coefficients":
+            hit = rng.random((H, W, 64)) < 0.2
+            coefs[hit] = rng.choice([-32767, -2047, 2047, 32767],
+                                    int(hit.sum()))
+            q = rng.integers(1, 65536, 64)
+        elif what == "a dense plane":
+            coefs = rng.choice([-1, 1], (H, W, 64)) * rng.integers(
+                512, 1024, (H, W, 64))
+        else:
+            coefs = np.clip(coefs, -1023, 1023)
+        coefs = coefs.astype(np.int16)
         for (r, c, k), v in plant.items():
             coefs[r, c, k] = v
-        rha = np.ones(9, bool)
+        rha = np.ones(H, bool)
         rha[tops] = False
-        out[what] = S.plane_inputs(
-            torch.as_tensor(coefs, device=dev), ci,
-            ColorTables(rng.integers(1, 60, 64)), rha, 9 * 13 - cut)
+        out[what] = S.plane_inputs(torch.as_tensor(coefs, device=dev), ci,
+                                   ColorTables(q), rha, H * W - cut)
     return out
 
 
-def trace_device(fn) -> str:
+def trace_device(fn, planes: int = 0) -> str:
     """One call of fn() under torch.profiler: the device ops by time (top
-    8) and the device-busy share of the window (the union of device
-    intervals over the span of every traced event), or "not measured"
-    where the trace holds no device time."""
+    8), their count (and a plane, over `planes` planes) and the
+    device-busy share of the window (the union of device intervals over
+    the span of every traced event), or "not measured" where the trace
+    holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -975,8 +994,9 @@ def trace_device(fn) -> str:
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    per = f" ({len(spans) / planes:.1f} a plane)" if planes else ""
     return (f"device busy {busy / 1e3:.2f} of {window / 1e3:.2f} ms "
-            f"({100 * busy / window:.1f}%), {len(spans)} device ops; top: "
+            f"({100 * busy / window:.1f}%), {len(spans)} device ops{per}; top: "
             + "; ".join(f"{name[:60]} {us / 1e3:.2f} ms" for name, us in top))
 
 
@@ -993,21 +1013,22 @@ def phase_symbolize(dev, smi: str, blobs, descs, leps, launches,
     from lepton_tpu_torch.kernels import symbolize as S
     t_phase = time.perf_counter()
     prof, wall, peak = main
-    # (a) the 12 planes of the main batch, kernel against plain
+    # (a) the 12 planes of the main batch, kernel against plain (the plain
+    # versions: phase A over the plane, then the slab)
     planes = [S.plane_inputs(*args) for im in descs for _, *args in
               batch_encode.image_planes(im, batch_encode.image_plan(im), dev)]
     got = [compare_symbols(p, f"[20] main-batch plane {k}")
            for k, p in enumerate(planes)]
     blocks = sum(g["blocks"] for g in got)
     symbols = sum(g["total"] for g in got)
-    rows_in = sum(p.coefs.shape[0] for p in planes)
-    reads, live = (sum(v) for v in zip(*map(symbol_reads, planes)))
     nplanes = len(planes)
     plain_ms = [sum(g["plain_ms"][i] for g in got) for i in (0, 1)]
-    # each kernel warm, all 12 planes a run
+    # each kernel warm, all 12 planes a run, back to back: the card sleeps
+    # while the host queues every launch, so host time does not count
     with uncounted():
         start, mid, end = (torch.cuda.Event(enable_timing=True)
                            for _ in range(3))
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(SYMBOL_TIMED_RUNS):
             for p in planes:
@@ -1033,10 +1054,16 @@ def phase_symbolize(dev, smi: str, blobs, descs, leps, launches,
     torch.cuda.empty_cache()
 
     # (b) small hostile planes, and a 4-component photo through the route
+    flagged = ("a value past 11 bits", "wrap-inducing coefficients")
+    hostile = {}
     for what, p in hostile_planes(dev).items():
         g = compare_symbols(p, f"[20] {what}")
-        if (g["over"] > 0) != (what == "a value past 11 bits"):
+        if (g["over"] > 0) != (what in flagged):
             fail(f"[20] {what}: {g['over']} blocks flagged over range")
+        hostile[what] = g["total"] / g["blocks"]
+    if hostile["a dense plane"] * S.TILE_BLOCKS <= S.STAGE_SYMBOLS:
+        fail("[20] the dense plane's tiles do not fill the staging buffer "
+             "of csrc/symbolize.cu")
     cmyk = make_photo(SEED + 90, 320, 240, mode="CMYK")
     _, info, dec = api._parse(cmyk, allow_four_colors=True)
     cdesc = api._describe(info, dec, api._plan(dec, 4)[0])
@@ -1049,8 +1076,11 @@ def phase_symbolize(dev, smi: str, blobs, descs, leps, launches,
              "differ from the plain route's")
     log("[20] == plain on small hostile planes (11-bit AC coefficients, a "
         "value past 11 bits, flagged, a past-cut size_limit with block 0 "
-        "of each cut row, segment-top rows) and on a 320x240 CMYK photo in "
-        "4 segments (4 planes, the fourth on the chroma model)")
+        "of each cut row, segment-top rows, coefficients at +-2047 and "
+        "+-32767 with quantizers to 65535, flagged, a dense plane of "
+        f"{hostile['a dense plane']:.0f} symbols a block) and on a 320x240 "
+        "CMYK photo in 4 segments (4 planes, the fourth on the chroma "
+        "model)")
 
     # (c) the whole stage and the whole encode, in turns
     stage = {"plain": [], "kernel": []}
@@ -1120,20 +1150,23 @@ def phase_symbolize(dev, smi: str, blobs, descs, leps, launches,
             t = time.perf_counter()
             with ctx:
                 got = trace_device(
-                    lambda: batch_encode.symbolize_images(descs, dev))
+                    lambda: batch_encode.symbolize_images(descs, dev),
+                    nplanes)
             log(f"[20] trace, {route} route ({time.perf_counter() - t:.1f} "
                 f"s with the profiler): {got}")
     torch.cuda.empty_cache()
 
-    # bounds: each input byte the walks read once (symbol_reads: the
-    # coefficients and contexts this data needs, the rows' flags, and
-    # symbol_emit's offset of each live block), each output written once
-    # (symbol_counts' count and flag a block, symbol_emit's 5 B a symbol)
-    ops = symbols * SYMBOL_OPS_PER_SYMBOL
-    c_bytes, c_ops = bound_ms(reads + blocks * 5 + rows_in, ops)
-    e_bytes, e_ops = bound_ms(reads + live * 8 + rows_in + symbols * 5, ops)
-    log(f"[20] the walks read {reads} bytes of the planes' data "
-        f"({reads / blocks:.1f} a block, {live} live blocks)")
+    # bounds: each input byte read once, each output byte written once
+    # (symbol_bytes), and phase A's and the walk's integer operations
+    ops = blocks * PHASE_A_OPS_PER_BLOCK + symbols * SYMBOL_OPS_PER_SYMBOL
+    c_moved, e_moved = symbol_bytes(blocks, symbols)
+    c_bytes, c_ops = bound_ms(c_moved, ops)
+    e_bytes, e_ops = bound_ms(e_moved, ops)
+    c_bound, e_bound = max(c_bytes, c_ops), max(e_bytes, e_ops)
+    log(f"[20] bounds: symbol_counts {c_moved} bytes, {c_bound:.4f} ms "
+        f"(kernel {ms[0] / c_bound:.1f}x); symbol_emit {e_moved} bytes, "
+        f"{e_bound:.4f} ms (kernel {ms[1] / e_bound:.1f}x); {ops} integer "
+        f"ops, {c_ops:.4f} ms")
     rows = []
     for name, k_ms, p_ms, (x_bytes, x_ops), what in (
             ("symbol_counts", ms[0], plain_ms[0], (c_bytes, c_ops),
@@ -1144,8 +1177,10 @@ def phase_symbolize(dev, smi: str, blobs, descs, leps, launches,
             "name": name, "route": "cuda",
             "source": "lepton_tpu_torch/csrc/symbolize.cu",
             "replaces": "lepton_tpu/kernels/symbolize.py:104",
-            "stage": f"symbolize (symbolize_slice and its compaction, "
-                     f"_sym_sorted_jit at batch_encode.py:91): {what}",
+            "stage": f"symbolize (symbolize_slice with its phase A, "
+                     f"contexts.py:257, and its compaction, _sym_sorted_jit "
+                     f"at batch_encode.py:91): {what}, from the "
+                     f"coefficients; plain_ms is phase A and the slab",
             "launches": launches[name], "max_abs_err": 0,
             "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": max(x_bytes, x_ops),
@@ -2666,24 +2701,24 @@ def main() -> None:
 
     # ---- phase 6: decoder kernel against plain on small images
     derrs = []
-    for nseg, w, h in ((1, 64, 48), (2, 96, 64), (4, 96, 64)):
+    for nseg, w, h in SMALL_DECODES:
         jpeg, lep = small_lep(SEED + 20 + nseg, w, h, 85, nseg)
         err, ms_k, ms_p = compare_decoder([lep], [jpeg])
         derrs.append(err)
         log(f"[6] {w}x{h}, {nseg} segment(s), identity start: kernel == "
             f"plain (kernel {ms_k:.2f} ms, plain {ms_p:.0f} ms)")
     packed = api.pack_model(raw)
-    jpeg, lep = small_lep(SEED + 30, 96, 64, 85, 2, template=packed)
+    jpeg, lep = small_lep(SEED + 30, 64, 32, 85, 2, template=packed)
     err, ms_k, ms_p = compare_decoder([lep], [jpeg], template=tpl)
     derrs.append(err)
-    log(f"[6] 96x64, 2 segments, template start: kernel == plain (kernel "
+    log(f"[6] 64x32, 2 segments, template start: kernel == plain (kernel "
         f"{ms_k:.2f} ms, plain {ms_p:.0f} ms)")
-    pair = [small_lep(SEED + 31, 96, 64, 90, 2),
+    pair = [small_lep(SEED + 31, 64, 32, 90, 2),
             small_lep(SEED + 32, 48, 32, 60, 1)]
     err, ms_k, ms_p = compare_decoder(
         [lep for _, lep in pair], [jpeg for jpeg, _ in pair])
     derrs.append(err)
-    log(f"[6] two requests (96x64 q90 in 2 segments, 48x32 q60) in one "
+    log(f"[6] two requests (64x32 q90 in 2 segments, 48x32 q60) in one "
         f"call: kernel == plain (kernel {ms_k:.2f} ms, plain {ms_p:.0f} ms)")
 
     # ---- phase 7: the main decode path
@@ -2957,8 +2992,7 @@ def main() -> None:
 
     # ---- phase 10: the rANS reader against plain
     rerrs = []
-    for nseg, w, h, template in ((1, 64, 48, None), (2, 96, 64, tpl),
-                                 (4, 96, 64, None)):
+    for (nseg, w, h), template in zip(SMALL_DECODES, (None, tpl, None)):
         jpeg, lep = small_lep(SEED + 40 + nseg, w, h, 85, nseg,
                               None if template is None else packed,
                               version=3)

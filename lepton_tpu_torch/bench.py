@@ -25,9 +25,10 @@ Sections, each the twin of one of bench.py's:
   host            bench_host (:81): host.compress / host.decompress of the
                   photos; every file back byte for byte;
   host_v3         bench_ans_v3 (:212): the same on one photo as v3;
-  symbolize       bench_tpu_phase_a (:293): kernels/contexts.py and
-                  kernels/symbolize.py on one photo (s, blocks/s); the
-                  symbols equal to the cold run's;
+  symbolize       bench_tpu_phase_a (:293): phase A and symbolize
+                  (kernels/symbolize.py: on the card its kernels, on a
+                  CPU kernels/contexts.py and the slab) on one photo (s,
+                  blocks/s); the symbols equal to the cold run's;
   encode_latency  bench_tpu_e2e_encode (:406): compress_device of one
                   photo, v1 and v3; bytes equal to host.compress;
   decode_latency  bench_tpu_decode (:438): decompress_device, v1 and v3;
@@ -299,9 +300,9 @@ def _descs(blobs) -> list:
 
 
 def bench_symbolize(blob: bytes, dev, runs: int) -> dict:
-    """Phase A and symbolize (kernels/contexts.py, kernels/symbolize.py,
-    through batch_encode.symbolize_images) of one photo, its planes
-    uploaded in each run; every run's symbols equal to the cold run's."""
+    """Phase A and symbolize (kernels/symbolize.py, through
+    batch_encode.symbolize_images) of one photo, its planes uploaded in
+    each run; every run's symbols equal to the cold run's."""
     import torch
 
     from .kernels import batch_encode

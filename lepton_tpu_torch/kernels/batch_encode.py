@@ -4,15 +4,18 @@ Port of lepton_tpu/kernels/batch_encode.py::encode_images_device (:461-799)
 for VPX lanes (containers v1 and v2) and rANS lanes (container v3).  The
 stages, in data-flow order:
 
-  1. copy each coefficient plane to the device as int16;
-  2. phase A over the whole plane (kernels/contexts.py), with
-     row_has_above False at row 0 and at segment tops;
-  3. symbolize it (kernels/symbolize.py): symbol_counts gives each
-     block's count of live symbols, an exclusive sum of them each block's
-     offset, one host read the plane's total, and emit_symbols writes the
-     live symbols in emission order, with no slab (on the card the two
-     kernels of csrc/symbolize.cu; on a CPU plane their plain versions);
-  4. fetch all per-row counts in one copy to the host;
+  1. copy each coefficient plane to the device as int16 (on the card from
+     pinned host memory, without waiting), with row_has_above False at
+     row 0 and at segment tops;
+  2. count each plane's symbols (kernels/symbolize.py): symbol_counts
+     gives each block's count of live symbols and an over-range flag, an
+     exclusive sum of the counts each block's offset (on the card the
+     kernel of csrc/symbolize.cu, which computes phase A's contexts from
+     the coefficients itself; on a CPU plane its plain version, phase A
+     (kernels/contexts.py) and the slab);
+  3. read every plane's total and per-row counts in one copy to the host;
+  4. emit_symbols writes each plane's live symbols in emission order into
+     the batch's one output, with no slab;
   5. assemble each lane (one per segment): for VPX the marker bit, the
      segment's rows in plan_rows order, then the 32 stop bits; for rANS
      the rows alone (batch_encode.py:628, :635-649); PAD after;
@@ -66,19 +69,15 @@ def _kernel_route(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
-def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
-                     size_limit: int, stats=None, pending=None):
-    """Live symbols of one plane in emission order, and its per-row counts:
-    phase A over the whole plane, symbol_counts, offsets from an exclusive
-    sum of the counts, one host read of the plane's total, emit_symbols.
-    On a CPU plane their plain versions share one slab (symbol_runs_plain).
-    stats, pending: the two kernels' CUDA-event times (branch_probs.timed).
-
-    Returns (idx int32 [N], bit uint8 [N], counts int64 [H]) on the plane's
-    device; a row with a value past 11 bits counts -1."""
-    dev = coefs.device
-    plane = plane_inputs(coefs, ci, ct, row_has_above, size_limit)
-    kernels = _kernel_route(dev)
+def _count_plane(plane, kernels: bool, stats=None, pending=None):
+    """Stage 2 of one plane: (offsets int64 [H, W], the plane's total
+    int64 [1], its per-row counts int64 [H], runs) on the plane's device,
+    with no host read; a row with a value past 11 bits counts -1.  On the
+    kernel route symbol_counts (stats, pending: its CUDA-event time,
+    branch_probs.timed); else the plain slab, made once for both stages
+    (runs: symbol_runs_plain, for _emit_plane)."""
+    dev = plane.coefs.device
+    runs = None
     if kernels:
         counts, over = timed(lambda: symbol_counts(plane), dev, stats,
                              "symbol_counts_ms", pending)
@@ -89,12 +88,31 @@ def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
     ends = torch.cumsum(flat, 0)
     offsets = (ends - flat).reshape(counts.shape)
     rows = torch.where(over.any(dim=1), -1, counts.sum(dim=1))
-    total = int(ends[-1])
+    return offsets, ends[-1:], rows, runs
+
+
+def _emit_plane(plane, offsets, total: int, runs, kernels: bool,
+                stats=None, pending=None, out=None):
+    """Stage 4 of one plane: its `total` symbols (idx int32, bit uint8),
+    into `out` when given (emit_symbols)."""
     if kernels:
-        idx, bit = timed(lambda: emit_symbols(plane, offsets, total), dev,
-                         stats, "symbol_emit_ms", pending)
-    else:
-        idx, bit = emit_symbols_plain(plane, offsets, total, runs)
+        return timed(lambda: emit_symbols(plane, offsets, total, out),
+                     plane.coefs.device, stats, "symbol_emit_ms", pending)
+    return emit_symbols_plain(plane, offsets, total, runs, out)
+
+
+def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
+                     size_limit: int, stats=None, pending=None):
+    """Live symbols of one plane in emission order, and its per-row counts:
+    _count_plane, one host read of the plane's total, _emit_plane.
+
+    Returns (idx int32 [N], bit uint8 [N], counts int64 [H]) on the plane's
+    device; a row with a value past 11 bits counts -1."""
+    plane = plane_inputs(coefs, ci, ct, row_has_above, size_limit)
+    kernels = _kernel_route(coefs.device)
+    offsets, total, rows, runs = _count_plane(plane, kernels, stats, pending)
+    idx, bit = _emit_plane(plane, offsets, int(total), runs, kernels, stats,
+                           pending)
     return idx, bit, rows
 
 
@@ -104,11 +122,22 @@ def image_plan(im) -> list:
                      im["max_coded_heights"], im["splits_y"])
 
 
+def _upload(a: np.ndarray, dtype, dev) -> torch.Tensor:
+    """a on dev as dtype: on the card through pinned host memory, queued
+    on the current stream without waiting (torch's pinned allocator keeps
+    the host buffer until the copy is done)."""
+    if dev.type != "cuda":
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+    host = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+    host.numpy()[...] = a
+    return host.to(dev, non_blocking=True)
+
+
 def image_planes(im, plan, dev):
-    """Each plane of one image as _symbolize_plane takes it: (component,
-    int16 coefficients [H, W, 64] copied to dev, the model's colour index,
-    its ColorTables, row_has_above (False at row 0 and at each segment's
-    top row), size_limit)."""
+    """Each plane of one image as plane_inputs takes it: (component, int16
+    coefficients [H, W, 64] copied to dev, the model's colour index, its
+    ColorTables, row_has_above bool [H] on dev (False at row 0 and at each
+    segment's top row), size_limit)."""
     cix = im.get("color_index")
     tops = segment_top_rows(plan, len(im["planes"]))
     for c, p in enumerate(im["planes"]):
@@ -116,10 +145,8 @@ def image_planes(im, plan, dev):
         rha[0] = False
         rha[sorted(tops[c])] = False
         ci = (0 if c == 0 else 1) if cix is None else cix(c)
-        coefs = torch.as_tensor(np.ascontiguousarray(p, dtype=np.int16),
-                                device=dev)
-        yield (c, coefs, ci, im["color_tables"][c], rha,
-               im["component_sizes"][c])
+        yield (c, _upload(p, torch.int16, dev), ci, im["color_tables"][c],
+               _upload(rha, torch.bool, dev), im["component_sizes"][c])
 
 
 def _ranges(segment_range, plans) -> list:
@@ -167,27 +194,31 @@ def symbolize_images(images, device="cuda", stats=None,
     in lepton_tpu/kernels/encode_pipeline.py (:276-390) restricts them for
     one process's share.  An image with segments to code is symbolized
     whole, as its top-row masks depend on every split; one without is not
-    symbolized.  stats: optional dict that receives symbolize_s and, on
-    the card, the symbol kernels' CUDA-event ms summed over the planes
-    (symbol_counts_ms, symbol_emit_ms)."""
+    symbolized.  Every plane is uploaded and counted before the batch's
+    one host read; then each plane's symbols are written into one output.
+    stats: optional dict that receives symbolize_s and, on the card, the
+    symbol kernels' CUDA-event ms summed over the planes (symbol_counts_ms,
+    symbol_emit_ms)."""
     dev = torch.device(device)
     stats = {} if stats is None else stats
     t = time.perf_counter()
-    sym_i, sym_b, counts, plane_base, pending = [], [], [], {}, []
+    kernels = _kernel_route(dev)
+    counted, plane_base, pending = [], {}, []
     plans = [image_plan(im) for im in images]
     ranges = _ranges(segment_range, plans)
     for d, (im, plan) in enumerate(zip(images, plans)):
         if ranges[d][0] == ranges[d][1]:
             continue                # no lane of this image: nothing to code
         for c, *args in image_planes(im, plan, dev):
-            i_, b_, n_ = _symbolize_plane(*args, stats, pending)
-            sym_i.append(i_)
-            sym_b.append(b_)
-            counts.append(n_)
-            plane_base[d, c] = len(counts) - 1
-    # one device-to-host copy of every row count of the batch
-    row_counts = torch.cat(counts).cpu().numpy() if counts else np.zeros(0)
-    first_row = np.cumsum([0] + [len(n) for n in counts])
+            plane = plane_inputs(*args)
+            counted.append((plane,) + _count_plane(plane, kernels, stats,
+                                                   pending))
+            plane_base[d, c] = len(counted) - 1
+    # one device-to-host copy: every plane's total, then every row count
+    host = torch.cat([x[2] for x in counted] + [x[3] for x in counted]
+                     ).cpu().numpy() if counted else np.zeros(0, np.int64)
+    totals, row_counts = host[:len(counted)], host[len(counted):]
+    first_row = np.cumsum([0] + [len(x[3]) for x in counted])
     for (d, c), p in plane_base.items():
         if (row_counts[first_row[p]:first_row[p + 1]] < 0).any():
             # the host codec refuses such a JPEG (leptonc.c encode_block)
@@ -195,10 +226,15 @@ def symbolize_images(images, device="cuda", stats=None,
                               "(a coded value past 11 bits)")
     row_off = np.zeros(len(row_counts) + 1, np.int64)
     np.cumsum(row_counts, out=row_off[1:])
-    sym_i = torch.cat(sym_i) if sym_i \
-        else torch.zeros(0, dtype=torch.int32, device=dev)
-    sym_b = torch.cat(sym_b) if sym_b \
-        else torch.zeros(0, dtype=torch.uint8, device=dev)
+    sym_i = torch.empty(int(totals.sum()), dtype=torch.int32, device=dev)
+    sym_b = torch.empty(len(sym_i), dtype=torch.uint8, device=dev)
+    at = 0
+    for p, (plane, offsets, _, _, runs) in enumerate(counted):
+        n = int(totals[p])
+        _emit_plane(plane, offsets, n, runs, kernels, stats, pending,
+                    (sym_i[at:at + n], sym_b[at:at + n]))
+        counted[p] = None       # the plane's coefficients are not needed
+        at += n
     _sync(dev)
     stats["symbolize_s"] = time.perf_counter() - t
     add_pending(stats, pending)

@@ -29,18 +29,18 @@ first slot carries COEF_OUT_OF_RANGE for the caller to refuse the image.
   DC                  11 exp + 1 sign + 10 residual        = 22
   total               1420
 
-On the card no slab is made (photos fill about 5% of it): phase A runs
-once over a plane (plane_inputs), and two kernels of csrc/symbolize.cu walk
-each block in the same emission order, one thread a block, writing only
-the live symbols.  symbol_counts gives each block's count and an
-over-range flag; the caller sums the counts into offsets, and emit_symbols
-writes each block's symbols at its offset (batch_encode._symbolize_plane).
-Each wrapper launches its kernel for CUDA tensors and runs its plain
-version (symbol_counts_plain, emit_symbols_plain: the slab above, in
-chunks of SLAB_BLOCKS blocks, and its live slots) for CPU tensors; on a
-CPU plane the route makes the slab once for both (symbol_runs_plain).
-walk_block is the kernels' walk in Python, one block at a time, on no
-path: the tests hold it to the slab.
+On the card no slab is made (photos fill about 5% of it) and phase A's
+contexts are not materialized: two kernels of csrc/symbolize.cu take a
+plane's coefficients (plane_inputs), compute each block's contexts in
+shared memory from the block and its neighbours, and walk each block in
+the same emission order, writing only the live symbols.  symbol_counts
+gives each block's count and an over-range flag; the caller sums the
+counts into offsets, and emit_symbols writes each block's symbols at its
+offset (batch_encode.symbolize_images).  Each wrapper launches its kernel
+for CUDA tensors and runs its plain version (symbol_counts_plain,
+emit_symbols_plain: phase A over the plane, then the slab above, in chunks
+of SLAB_BLOCKS blocks, and its live slots) for CPU tensors; on a CPU plane
+the route makes the slab once for both (symbol_runs_plain).
 """
 from __future__ import annotations
 
@@ -140,8 +140,8 @@ def symbolize_slice(coefs: torch.Tensor, ci: int, quant: torch.Tensor,
 def _slab(coefs: torch.Tensor, pa: dict, ci: int,
           min_noise_threshold: torch.Tensor, row_block_offset: int,
           size_limit: int, row_has_above: torch.Tensor = None):
-    """symbolize_slice from phase A's contexts `pa` (phase_a's dict, or a
-    Plane's fields of the same names) of the same rows."""
+    """symbolize_slice from phase A's contexts `pa` (phase_a's dict) of
+    the same rows."""
     R, W = coefs.shape[0], coefs.shape[1]
     dev = coefs.device
     coefs32 = coefs.to(_I32)                             # [R, W, 64]
@@ -344,6 +344,10 @@ def _slab(coefs: torch.Tensor, pa: dict, ci: int,
 # blocks of the plain versions' slab a call: bounds [rows, W, BLOCK_SLOTS]
 # and its intermediates to about a gigabyte
 SLAB_BLOCKS = 1 << 15
+# csrc/symbolize.cu's kTile (blocks of one row a CTA takes) and kStage (the
+# symbols symbol_emit stages in shared memory a round)
+TILE_BLOCKS = 32
+STAGE_SYMBOLS = 4096
 # tables the walk indexes, in the order of csrc/symbolize.cu's Tab: each
 # table's offset, then its strides but the last (which is 1)
 PARAM_TABLES = ("nz_7x7", "nz_1x8", "nz_8x1", "residual_noise",
@@ -352,7 +356,10 @@ PARAM_TABLES = ("nz_7x7", "nz_1x8", "nz_8x1", "residual_noise",
 PARAM_NAMES = tuple(
     name for t in PARAM_TABLES for name in
     [t.upper()] + [f"{t.upper()}_S{k}" for k in range(len(_STR[t]) - 1)])
-LAK_LANES = 14
+# the plane's int32 [64] tables of the parameter block, after the tables,
+# bins and zigzag order, in the source's order (kNoise, kQuant, kIcosX,
+# kIcosY)
+PLANE_TABLES = ("min_noise_threshold", "quant", "icos_x", "icos_y")
 
 
 def table_params() -> np.ndarray:
@@ -362,69 +369,51 @@ def table_params() -> np.ndarray:
                      for v in (_OFF[t],) + _STR[t][:-1]], np.int32)
 
 
-def params(min_noise_threshold) -> np.ndarray:
+def params(plane: "Plane") -> np.ndarray:
     """The kernels' whole parameter block (csrc/symbolize.cu Params):
     table_params(), the nonzero-count bins (50), the zigzag order of the
-    7x7 interior (49) and the plane's min noise thresholds (64), int32."""
+    7x7 interior (49), then the plane's PLANE_TABLES (64 each), int32."""
     return np.concatenate([
         table_params(), np.asarray(C.NONZERO_TO_BIN, np.int32),
-        np.asarray(C.UNZIGZAG49, np.int32),
-        np.asarray(min_noise_threshold, np.int32)])
+        np.asarray(C.UNZIGZAG49, np.int32)]
+        + [np.asarray(getattr(plane, k), np.int32) for k in PLANE_TABLES])
 
 
 class Plane(NamedTuple):
-    """One plane's inputs to the symbol kernels, on one device: its
-    coefficients, phase A's contexts of every block (kernels/contexts.py),
-    and what says which blocks code with which model."""
+    """One plane's inputs to the symbol kernels: its coefficients and row
+    flags on one device, and its colour tables, model and size limit on
+    the host."""
     coefs: torch.Tensor          # int16 [H, W, 64] raster
-    nz7x7: torch.Tensor          # uint8 [H, W]
-    aavrg: torch.Tensor          # int32 [H, W, 64]
-    lak: torch.Tensor            # int32 [H, W, 14]
-    dc_pred: torch.Tensor        # int32 [H, W]
-    uncertainty: torch.Tensor    # int32 [H, W]
-    uncertainty2: torch.Tensor   # int32 [H, W]
     row_has_above: torch.Tensor  # bool [H]
-    min_noise_threshold: np.ndarray  # int32 [64], on the host
+    quant: np.ndarray            # int32 [64] raster (ColorTables)
+    icos_x: np.ndarray           # int32 [64]: icos_idct_edge_8192_dequantized_x
+    icos_y: np.ndarray           # int32 [64]: ..._y
+    min_noise_threshold: np.ndarray  # int32 [64]
     ci: int                      # 0 luma, 1 chroma model
     row_block_offset: int        # the plane index of block (0, 0)
     size_limit: int              # blocks past it code nothing but block 0
                                  # of a row (symbolize_slice)
 
-    def rows(self, lo: int, hi: int) -> "Plane":
-        """Rows lo..hi-1 alone (their contexts are the whole plane's)."""
-        W = self.coefs.shape[1]
-        return Plane(*(t[lo:hi] for t in self[:8]), self.min_noise_threshold,
-                     self.ci, self.row_block_offset + lo * W,
-                     self.size_limit)
-
 
 def plane_inputs(coefs: torch.Tensor, ci: int, ct, row_has_above,
                  size_limit: int, row_block_offset: int = 0) -> Plane:
-    """Phase A over a whole plane (coefs int16 [H, W, 64] on its device),
-    with the ColorTables `ct` and row_has_above (bool [H]), as the symbol
-    kernels and their plain versions take it."""
-    dev = coefs.device
-    quant, icx, icy = (torch.as_tensor(np.asarray(a, np.int32), device=dev)
-                       for a in (ct.quant,
-                                 ct.icos_idct_edge_8192_dequantized_x,
-                                 ct.icos_idct_edge_8192_dequantized_y))
-    rha = torch.as_tensor(row_has_above, device=dev, dtype=torch.bool)
-    pa = phase_a(coefs, quant, icx, icy, rha)
-    return Plane(coefs, pa["nz7x7"], pa["aavrg"], pa["lak"], pa["dc_pred"],
-                 pa["uncertainty"], pa["uncertainty2"], rha,
-                 np.asarray(ct.min_noise_threshold, np.int32), int(ci),
-                 int(row_block_offset), int(size_limit))
+    """A whole plane (coefs int16 [H, W, 64] on its device) with the
+    ColorTables `ct` and row_has_above (bool [H], or a tensor of it on the
+    plane's device), as the symbol kernels and their plain versions take
+    it."""
+    rha = torch.as_tensor(row_has_above, device=coefs.device,
+                          dtype=torch.bool)
+    return Plane(coefs, rha, *(np.asarray(a, np.int32) for a in (
+        ct.quant, ct.icos_idct_edge_8192_dequantized_x,
+        ct.icos_idct_edge_8192_dequantized_y, ct.min_noise_threshold)),
+        int(ci), int(row_block_offset), int(size_limit))
 
 
 def check(plane: Plane) -> None:
     """Raise on a plane the kernels do not take."""
     H, W = plane.coefs.shape[:2]
-    want = dict(coefs=(torch.int16, (H, W, 64)), nz7x7=(_U8, (H, W)),
-                aavrg=(_I32, (H, W, 64)), lak=(_I32, (H, W, LAK_LANES)),
-                dc_pred=(_I32, (H, W)), uncertainty=(_I32, (H, W)),
-                uncertainty2=(_I32, (H, W)),
-                row_has_above=(torch.bool, (H,)))
-    for name, (dtype, shape) in want.items():
+    for name, dtype, shape in (("coefs", torch.int16, (H, W, 64)),
+                               ("row_has_above", torch.bool, (H,))):
         t = getattr(plane, name)
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {list(shape)}, not "
@@ -433,29 +422,37 @@ def check(plane: Plane) -> None:
             raise ValueError(f"{name} must be on {plane.coefs.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if np.shape(plane.min_noise_threshold) != (64,):
-        raise ValueError("min_noise_threshold must be [64]")
+    for name in PLANE_TABLES:
+        if np.shape(getattr(plane, name)) != (64,):
+            raise ValueError(f"{name} must be [64]")
     if not 0 <= plane.ci < C.BLOCK_TYPES:
         raise ValueError(f"ci must lie in [0, {C.BLOCK_TYPES})")
+    if plane.coefs.device.type == "cuda":
+        if plane.coefs.data_ptr() % 16:
+            raise ValueError("coefs must be 16-byte aligned")
+        if H > 65535:
+            raise ValueError("a plane of more than 65535 rows")
 
 
 def _slabs(plane: Plane):
     """(r0, r1, idx, bit) of the plain slab (_slab) of the plane's rows in
     chunks of about SLAB_BLOCKS blocks, each with the row above it as
-    context and dropped."""
+    context and dropped; phase A (the contexts the kernels compute in
+    shared memory) is taken once over the whole plane."""
     H, W = plane.coefs.shape[:2]
-    mnt = torch.as_tensor(plane.min_noise_threshold,
-                          device=plane.coefs.device)
+    dev = plane.coefs.device
+    quant, icx, icy, mnt = (torch.as_tensor(getattr(plane, k), device=dev)
+                            for k in ("quant", "icos_x", "icos_y",
+                                      "min_noise_threshold"))
+    pa = phase_a(plane.coefs, quant, icx, icy, plane.row_has_above)
     step = max(1, SLAB_BLOCKS // max(W, 1))
     for r0 in range(0, H, step):
         r1 = min(H, r0 + step)
         lo = max(r0 - 1, 0)
-        p = plane.rows(lo, r1)
-        pa = dict(nz7x7=p.nz7x7, aavrg=p.aavrg, lak=p.lak,
-                  dc_pred=p.dc_pred, uncertainty=p.uncertainty,
-                  uncertainty2=p.uncertainty2)
-        idx, bit = _slab(p.coefs, pa, p.ci, mnt, p.row_block_offset,
-                         p.size_limit, p.row_has_above)
+        idx, bit = _slab(plane.coefs[lo:r1], {k: v[lo:r1] for k, v in
+                                              pa.items()},
+                         plane.ci, mnt, plane.row_block_offset + lo * W,
+                         plane.size_limit, plane.row_has_above[lo:r1])
         yield r0, r1, idx[r0 - lo:], bit[r0 - lo:]
 
 
@@ -475,8 +472,8 @@ def symbol_runs_plain(plane: Plane):
     """Both plain versions' work from one pass of the slab: (counts int32
     [H, W], over bool [H, W], idx int32 [N], bit uint8 [N]), idx and bit
     every block's live slots in order, block after block.  The route on a
-    CPU plane (batch_encode._symbolize_plane) takes it once and hands it
-    to emit_symbols_plain."""
+    CPU plane (batch_encode._count_plane) takes it once and hands it to
+    emit_symbols_plain."""
     check(plane)
     counts, over, parts_i, parts_b = [], [], [], []
     for _, _, idx, bit in _slabs(plane):
@@ -489,14 +486,28 @@ def symbol_runs_plain(plane: Plane):
             torch.cat(parts_b))
 
 
+def _outputs(dev, total: int, out):
+    """(idx int32 [total], bit uint8 [total]) on dev: `out` checked, or
+    new tensors."""
+    if out is None:
+        return (torch.empty(total, dtype=_I32, device=dev),
+                torch.empty(total, dtype=_U8, device=dev))
+    for t, dtype in zip(out, (_I32, _U8)):
+        if (t.dtype != dtype or tuple(t.shape) != (total,)
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"out must be contiguous int32 and uint8 "
+                             f"[{total}] on {dev}")
+    return out
+
+
 def emit_symbols_plain(plane: Plane, offsets: torch.Tensor, total: int,
-                       runs=None):
+                       runs=None, out=None):
     """The symbol_emit kernel's plain PyTorch version: symbolize_slice's
     slab, its live slots compacted in order by a boolean mask, and block
     (r, c)'s run placed at offsets[r, c].  runs: symbol_runs_plain(plane)
-    where the caller has it already.  Returns (idx int32 [total], bit
-    uint8 [total]); an over-range block's first symbol is
-    COEF_OUT_OF_RANGE."""
+    where the caller has it already; out: as emit_symbols takes it.
+    Returns (idx int32 [total], bit uint8 [total]); an over-range block's
+    first symbol is COEF_OUT_OF_RANGE."""
     check(plane)
     counts, _, idx, bit = symbol_runs_plain(plane) if runs is None else runs
     dev = plane.coefs.device
@@ -506,8 +517,7 @@ def emit_symbols_plain(plane: Plane, offsets: torch.Tensor, total: int,
     pos = torch.repeat_interleave(offsets.reshape(-1) - first, n,
                                   output_size=m)
     pos += torch.arange(m, device=dev)
-    out_i = torch.empty(total, dtype=_I32, device=dev)
-    out_b = torch.empty(total, dtype=_U8, device=dev)
+    out_i, out_b = _outputs(dev, total, out)
     out_i[pos] = idx
     out_b[pos] = bit
     return out_i, out_b
@@ -523,7 +533,7 @@ def _get_lib():
         if _lib is None:
             lib = cuda_build.load("symbolize")
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            plane = [p] * 8 + [i64] * 4 + [i, p, i]
+            plane = [p, p] + [i64] * 4 + [i, p, i]
             lib.symbol_counts_launch.argtypes = plane + [p, p, p]
             lib.symbol_counts_launch.restype = i
             lib.symbol_emit_launch.argtypes = plane + [p, p, p, i64, p]
@@ -538,11 +548,11 @@ def _plane_args(plane: Plane) -> list:
     """The launch functions' leading arguments: the plane's tensors, its
     geometry, its model and its parameter block (a host array)."""
     H, W = plane.coefs.shape[:2]
-    prm = params(plane.min_noise_threshold)
+    prm = params(plane)
     # the pointer keeps the array alive through the call
-    return [t.data_ptr() for t in plane[:8]] + [
-        H, W, plane.row_block_offset, plane.size_limit, plane.ci,
-        prm.ctypes.data_as(ctypes.c_void_p), len(prm)]
+    return [plane.coefs.data_ptr(), plane.row_has_above.data_ptr(),
+            H, W, plane.row_block_offset, plane.size_limit, plane.ci,
+            prm.ctypes.data_as(ctypes.c_void_p), len(prm)]
 
 
 def _launch(lib, fn, wrapper, args: list, stream: int) -> None:
@@ -558,8 +568,8 @@ def symbol_counts(plane: Plane):
     """Each block's count of live symbols and whether it codes a value past
     11 bits (which has no code: the image is refused).  Returns (counts
     int32 [H, W], over bool [H, W]).  CUDA tensors launch the
-    symbol_counts kernel (csrc/symbolize.cu); CPU tensors run
-    symbol_counts_plain."""
+    symbol_counts kernel (csrc/symbolize.cu), which computes phase A
+    itself from the coefficients; CPU tensors run symbol_counts_plain."""
     check(plane)
     if plane.coefs.device.type == "cpu":
         return symbol_counts_plain(plane)
@@ -577,10 +587,13 @@ def symbol_counts(plane: Plane):
 symbol_counts.launches = 0
 
 
-def emit_symbols(plane: Plane, offsets: torch.Tensor, total: int):
+def emit_symbols(plane: Plane, offsets: torch.Tensor, total: int,
+                 out=None):
     """Each block's live symbols in emission order, block (r, c)'s at
     offsets[r, c] (int64 [H, W], as an exclusive sum of symbol_counts
-    gives them) of outputs of `total` symbols.  Returns (idx int32
+    gives them) of outputs of `total` symbols: `out`, a pair of
+    contiguous int32 and uint8 [total] tensors on the plane's device
+    (views of a batch's outputs), or new ones.  Returns (idx int32
     [total], bit uint8 [total]); the first symbol of a block that codes a
     value past 11 bits is COEF_OUT_OF_RANGE.  CUDA tensors launch the
     symbol_emit kernel (csrc/symbolize.cu); CPU tensors run
@@ -593,10 +606,9 @@ def emit_symbols(plane: Plane, offsets: torch.Tensor, total: int):
         raise ValueError(f"offsets must be contiguous int64 [{H}, {W}] on "
                          f"{plane.coefs.device}")
     if plane.coefs.device.type == "cpu":
-        return emit_symbols_plain(plane, offsets, total)
+        return emit_symbols_plain(plane, offsets, total, out=out)
     dev = plane.coefs.device
-    idx = torch.empty(total, dtype=_I32, device=dev)
-    bit = torch.empty(total, dtype=_U8, device=dev)
+    idx, bit = _outputs(dev, total, out)
     lib = _get_lib()
     _launch(lib, lib.symbol_emit_launch, emit_symbols,
             _plane_args(plane) + [offsets.data_ptr(), idx.data_ptr(),
@@ -606,166 +618,3 @@ def emit_symbols(plane: Plane, offsets: torch.Tensor, total: int):
 
 
 emit_symbols.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# The kernels' walk in Python, one block at a time: on no path; the tests
-# hold it to symbolize_slice, so that csrc/symbolize.cu's arithmetic, which
-# it follows line by line, is checked where no card is
-# ---------------------------------------------------------------------------
-
-
-def _wabs(v: int) -> int:
-    """torch.abs of an int32: INT32_MIN stays itself."""
-    return -v if -(1 << 31) < v < 0 else v
-
-
-def _bitlen(v: int) -> int:
-    return v.bit_length() if v > 0 else 0
-
-
-def _bsr(v: int) -> int:
-    return _bitlen(min(_wabs(v), 1023))
-
-
-def walk_block(host: dict, prm: np.ndarray, b: int):
-    """The walk of csrc/symbolize.cu for block b (flat, row-major) of a
-    plane: host holds the Plane's tensors as numpy arrays flattened to
-    blocks (coefs [N, 64], nz7x7 [N], aavrg [N, 64], lak [N, 14], dc_pred,
-    uncertainty, uncertainty2 [N], row_has_above [H]) and width, ci,
-    row_block_offset, size_limit; prm is params(...).  Returns (idx list,
-    bit list, over)."""
-    P = [int(v) for v in prm]
-    T = {name: P[k] for k, name in enumerate(PARAM_NAMES)}
-    nzbin = P[len(PARAM_NAMES):len(PARAM_NAMES) + 50]
-    unzig = P[len(PARAM_NAMES) + 50:len(PARAM_NAMES) + 99]
-    noise = P[len(PARAM_NAMES) + 99:]
-    W = host["width"]
-    r, c = divmod(b, W)
-    idx, bits = [], []
-
-    def put(i, bit):
-        idx.append(int(i))
-        bits.append(int(bit))
-
-    if not (host["row_block_offset"] + b < host["size_limit"] or c == 0):
-        return idx, bits, False
-    co = [int(v) for v in host["coefs"][b]]
-    ci = host["ci"]
-    nz7 = int(host["nz7x7"][b])
-    has_left, has_above = c > 0, bool(host["row_has_above"][r])
-    nl = int(host["nz7x7"][b - 1]) if has_left else 0
-    na = int(host["nz7x7"][b - W]) if r > 0 else 0
-    if has_left and has_above:
-        ctx = (na + nl + 2) // 4
-    elif has_above:
-        ctx = (na + 1) // 2
-    elif has_left:
-        ctx = (nl + 1) // 2
-    else:
-        ctx = 0
-    base = T["NZ_7X7"] + ci * T["NZ_7X7_S0"] + nzbin[ctx] * T["NZ_7X7_S1"]
-    for i in range(5, -1, -1):
-        put(base + i * T["NZ_7X7_S2"] + (nz7 >> (i + 1)), (nz7 >> i) & 1)
-
-    def put_exp(base, n):
-        for i in range(min(n, _MAXE - 1) + 1):
-            put(base + i, n != i)
-
-    def put_res(base, n, a):
-        for i in range(n - 2, max(n - 1 - C.COEF_BITS, 0) - 1, -1):
-            put(base + i, (a >> i) & 1)
-
-    res_base = T["RESIDUAL_NOISE"] + ci * T["RESIDUAL_NOISE_S0"]
-    sign_base = T["SIGN"] + ci * T["SIGN_S0"]
-    exp_base = T["EXP_7X7"] + ci * T["EXP_7X7_S0"]
-    over = False
-    eob_x = eob_y = 0
-    nz_left = nz7
-    k = 0
-    while k < 49 and nz_left > 0:
-        pos = unzig[k]
-        v = co[pos]
-        a = _wabs(v)
-        n = _bitlen(a)
-        bsr = _bsr(int(host["aavrg"][b, pos]))
-        nnzb = nzbin[min(nz_left, 49)]
-        put_exp(exp_base + nnzb * T["EXP_7X7_S1"] + k * T["EXP_7X7_S2"]
-                + bsr * T["EXP_7X7_S3"], n)
-        if n > 0:
-            put(sign_base, v >= 0)
-        put_res(res_base + pos * T["RESIDUAL_NOISE_S1"]
-                + nnzb * T["RESIDUAL_NOISE_S2"], n, a)
-        over |= n > _MAXE
-        if v != 0:
-            nz_left -= 1
-            eob_x = max(eob_x, pos & 7)
-            eob_y = max(eob_y, pos >> 3)
-        k += 1
-
-    expx_base = T["EXP_X"] + ci * T["EXP_X_S0"]
-    rt_base = T["RESIDUAL_THRESH"] + ci * T["RESIDUAL_THRESH_S0"]
-    cap = (1 << C.RESIDUAL_NOISE_FLOOR) - 1
-    for horizontal in (True, False):
-        step, zig15, t, est_eob = ((1, 0, "NZ_8X1", eob_x) if horizontal
-                                   else (8, 7, "NZ_1X8", eob_y))
-        cnt = sum(co[l * step] != 0 for l in range(1, 8))
-        nz_slice = (T[t] + ci * T[t + "_S0"] + est_eob * T[t + "_S1"]
-                    + ((nz7 + 3) // 7) * T[t + "_S2"])
-        for i in range(2, -1, -1):
-            put(nz_slice + i * T[t + "_S3"] + (cnt >> (i + 1)),
-                (cnt >> i) & 1)
-        remaining = cnt
-        l = 0
-        while l < 7 and remaining > 0:
-            coord = (l + 1) * step
-            v = co[coord]
-            a = _wabs(v)
-            n = _bitlen(a)
-            bp = int(host["lak"][b, zig15 + l])
-            bsr = _bsr(bp)
-            put_exp(expx_base + remaining * T["EXP_X_S1"]
-                    + (zig15 + l) * T["EXP_X_S2"] + bsr * T["EXP_X_S3"], n)
-            if v != 0:
-                ctx1 = 0 if bp == 0 else 1 if bp > 0 else 2
-                put(sign_base + ctx1 * T["SIGN_S1"] + bsr, v >= 0)
-            over |= n > _MAXE
-            mt = noise[coord]
-            t1 = min(_wabs(bp) >> mt, 255)
-            t2 = min(n - mt, C.RESIDUAL_NOISE_FLOOR)
-            thresh = (rt_base + t1 * T["RESIDUAL_THRESH_S1"]
-                      + t2 * T["RESIDUAL_THRESH_S2"])
-            res = (res_base + coord * T["RESIDUAL_NOISE_S1"]
-                   + remaining * T["RESIDUAL_NOISE_S2"])
-            so_far = 1
-            for i in range(n - 2, max(n - 1 - C.COEF_BITS, 0) - 1, -1):
-                bit = (a >> i) & 1
-                if i >= mt:
-                    put(thresh + so_far, bit)
-                    so_far = min((so_far << 1) | bit, cap)
-                else:
-                    put(res + i, bit)
-            if v != 0:
-                remaining -= 1
-            l += 1
-
-    maxv = 1 << (_MAXE - 1)
-    delta = co[0] - int(host["dc_pred"][b])
-    delta = (delta + (1 << 31)) % (1 << 32) - (1 << 31)   # int32 wrap
-    if delta < -maxv:
-        delta += 2 * maxv + 1
-    if delta > maxv:
-        delta -= 2 * maxv + 1
-    a = _wabs(delta)
-    n = _bitlen(a)
-    u, u2 = int(host["uncertainty"][b]), int(host["uncertainty2"][b])
-    lm = min(_bitlen(_wabs(u)), C.NUMERIC_LENGTH_MAX - 1)
-    lo = min(_bitlen(_wabs(u2)), 16)
-    put_exp(T["EXP_DC"] + lm * T["EXP_DC_S0"] + lo * T["EXP_DC_S1"], n)
-    if n > 0:
-        put(sign_base + (1 if u2 < 0 else 3 if u2 == 0 else 2), delta >= 0)
-    put_res(T["RESIDUAL_NOISE_DC"] + lm * T["RESIDUAL_NOISE_DC_S0"], n, a)
-    over |= n > _MAXE
-    if over:
-        idx[0] = COEF_OUT_OF_RANGE
-    return idx, bits, over

@@ -26,8 +26,9 @@ from PIL import Image
 
 import chip_smoke
 from lepton_tpu_torch import api, sanitize
-from lepton_tpu_torch.kernels import (ans_coder, batch_encode, cuda_build,
-                                      symbolize, vpx_coder, vpx_decoder)
+from lepton_tpu_torch.kernels import (ans_coder, batch_encode, contexts,
+                                      cuda_build, symbolize, vpx_coder,
+                                      vpx_decoder)
 from lepton_tpu_torch.kernels import branch_probs as bp
 from lepton_tpu_torch.model.tables import ARENA_SIZE, arena_from_template
 from lepton_tpu_torch.probes import decode_roofline
@@ -455,7 +456,8 @@ def test_versions_round_trip_geometries(cuda, name, w, h, mode, kw, k, cut,
 @pytest.mark.cuda
 def test_cuda_path_never_runs_plain(cuda, monkeypatch):
     """Encode and decode of v1, v2 and v3 on the card with every plain
-    version made to raise: the CUDA path launches the kernels only."""
+    version, and phase A's torch ops, made to raise: the CUDA path
+    launches the kernels only."""
     def boom(*a, **k):
         raise AssertionError("a plain version ran on the CUDA path")
     for mod, name in ((vpx_coder, "encode_streams_plain"),
@@ -472,6 +474,8 @@ def test_cuda_path_never_runs_plain(cuda, monkeypatch):
                       (batch_encode, "symbol_runs_plain"),
                       (batch_encode, "emit_symbols_plain"),
                       (symbolize, "symbolize_slice"),
+                      (symbolize, "phase_a"),
+                      (contexts, "phase_a"),
                       (vpx_decoder, "decode_lanes_plain")):
         monkeypatch.setattr(mod, name, boom)
     data = chip_smoke.make_photo(6, 96, 64)
@@ -484,18 +488,25 @@ def test_cuda_path_never_runs_plain(cuda, monkeypatch):
 @pytest.mark.parametrize("what", ["11-bit AC coefficients",
                                   "a value past 11 bits",
                                   "a past-cut size_limit",
-                                  "segment-top rows"])
+                                  "segment-top rows",
+                                  "wrap-inducing coefficients",
+                                  "a dense plane"])
 def test_symbol_kernels_match_plain(cuda, what):
-    """symbol_counts and symbol_emit on the card equal their plain
-    versions on the same CUDA planes (counts, flags, idx, bit), one launch
-    of each; a flagged block's first symbol is COEF_OUT_OF_RANGE."""
+    """symbol_counts and symbol_emit on the card, which compute phase A
+    from the coefficients, equal their plain versions (phase A, then the
+    slab) on the same CUDA planes (counts, flags, idx, bit), one launch of
+    each; a flagged block's first symbol is COEF_OUT_OF_RANGE.  The planes
+    have segment-top rows, a size-limit cut, values that wrap phase A's
+    int32 and int16 arithmetic, and a dense plane whose tiles stage their
+    symbols in rounds."""
     plane = chip_smoke.hostile_planes(cuda)[what]
     before = (symbolize.symbol_counts.launches,
               symbolize.emit_symbols.launches)
     counts, over = symbolize.symbol_counts(plane)
     pc, po = symbolize.symbol_counts_plain(plane)
     assert torch.equal(counts, pc) and torch.equal(over, po)
-    assert over.any().item() == (what == "a value past 11 bits")
+    assert over.any().item() == (what in ("a value past 11 bits",
+                                          "wrap-inducing coefficients"))
     n = counts.reshape(-1).to(torch.int64)
     offsets = (torch.cumsum(n, 0) - n).reshape(counts.shape)
     idx, bit = symbolize.emit_symbols(plane, offsets, int(n.sum()))
