@@ -31,6 +31,8 @@ import threading
 
 import numpy as np
 
+from ..util import timing
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "leptonc.c")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
@@ -58,12 +60,14 @@ def _build() -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        for flags in (["-O3", "-march=native"], ["-O2"]):
-            r = subprocess.run(["gcc", *flags, "-fPIC", "-shared", "-o", tmp,
-                                _SRC], capture_output=True, text=True)
-            if r.returncode == 0:
-                os.replace(tmp, _SO)
-                return
+        with timing.span("build.leptonc"):
+            for flags in (["-O3", "-march=native"], ["-O2"]):
+                r = subprocess.run(["gcc", *flags, "-fPIC", "-shared", "-o",
+                                    tmp, _SRC], capture_output=True,
+                                   text=True)
+                if r.returncode == 0:
+                    os.replace(tmp, _SO)
+                    return
         raise NativeUnavailable(f"gcc failed: {r.stderr[-2000:]}")
     finally:
         if os.path.exists(tmp):

@@ -38,8 +38,6 @@ the kernels (the tests do).
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -59,8 +57,10 @@ from .host import (LeptonError, _container_end,  # noqa: F401
                    request_error, ujg_compress, ujg_decompress)
 from .jpeg.imageinfo import UnsupportedJpeg, image_info_from_header  # noqa: F401
 from .kernels import batch_encode, vpx_decoder
+from .kernels.branch_probs import timed
 from .model.context import ColorTables
 from .model.tables import arena_from_template
+from .util import timing
 
 
 def _device(device) -> torch.device:
@@ -139,42 +139,54 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
     the caller must have pre-imported the parse modules
     (cli._prepare_for_jail).
     stats: optional dict that receives the stage times and counts: parse_s
-    (host parse + Huffman), symbolize_s, assemble_s, coder_ms or, for
+    (host parse + Huffman) and huffman_s (the native scan decodes in it;
+    not with jailed_parse), stage_s and stage_bytes (coefficients copied
+    into pinned memory), symbolize_s, assemble_s, coder_ms or, for
     version 3, ans_coder_ms (CUDA events on the card), finalize_s, mux_s,
-    lanes, symbols, max_lane_symbols."""
+    lanes, symbols, max_lane_symbols.  Each time is a timing.span's."""
     if version not in (1, 2, 3):
         raise LeptonError(f"no container version {version}")
     stats = {} if stats is None else stats
     dev = _device(device)
-    t = time.perf_counter()
-    metas, descs = [], []
-    parse = _parse_jpeg_jailed if jailed_parse else _parse
     if isinstance(num_segments, int):
         num_segments = [num_segments] * len(jpeg_blobs)
     if len(num_segments) != len(jpeg_blobs):
         raise ValueError(f"{len(num_segments)} segment counts for "
                          f"{len(jpeg_blobs)} JPEGs")
+    parse = _parse_jpeg_jailed if jailed_parse else _parse
+    with timing.call(stats, "encode"):
+        with timing.span("parse", "parse_s", stage="TS_JPEG_DECODE"):
+            metas, descs = _parse_images(jpeg_blobs, num_segments, parse,
+                                         allow_progressive, allow_four_colors)
+        all_streams = batch_encode.encode_images_device(
+            descs, version, template=_model_template_packed(), device=dev,
+            stats=stats)
+        with timing.span("container", "mux_s", stage="TS_STREAM_MULTIPLEX"):
+            return [_container(parsed, dec, splits, num_threads, streams,
+                               version)
+                    for (parsed, dec, splits, num_threads), streams
+                    in zip(metas, all_streams)]
+
+
+def _parse_images(jpeg_blobs, num_segments, parse, allow_progressive,
+                  allow_four_colors):
+    """(metas, descs) of a batch: each JPEG parsed by `parse` (span
+    parse.image) and its segments planned (parse.plan)."""
+    metas, descs = [], []
     for i, (data, nseg) in enumerate(zip(jpeg_blobs, num_segments)):
         # what a request's bytes make fail here raises one of
         # REQUEST_ERRORS; an error of the stages after this loop is the card's
-        try:
-            parsed, info, dec = parse(data, allow_progressive,
-                                      allow_four_colors)
-            splits, num_threads = _plan(dec, nseg)
-            descs.append(_describe(info, dec, splits))
-        except Exception as e:
-            raise request_error(i, e)
+        with timing.span("parse.image", image=i):
+            try:
+                parsed, info, dec = parse(data, allow_progressive,
+                                          allow_four_colors)
+                with timing.span("parse.plan"):
+                    splits, num_threads = _plan(dec, nseg)
+                    descs.append(_describe(info, dec, splits))
+            except Exception as e:
+                raise request_error(i, e)
         metas.append((parsed, dec, splits, num_threads))
-    stats["parse_s"] = time.perf_counter() - t
-    all_streams = batch_encode.encode_images_device(
-        descs, version, template=_model_template_packed(), device=dev,
-        stats=stats)
-    t = time.perf_counter()
-    out = [_container(parsed, dec, splits, num_threads, streams, version)
-           for (parsed, dec, splits, num_threads), streams
-           in zip(metas, all_streams)]
-    stats["mux_s"] = time.perf_counter() - t
-    return out
+    return metas, descs
 
 
 def compress_device(jpeg_data: bytes, num_segments: int = 16,
@@ -193,9 +205,9 @@ def compress_device(jpeg_data: bytes, num_segments: int = 16,
     (batch_encode.symbol_lanes, then code_lanes: one launch of each coder
     kernel); without the library it raises LeptonError, with no Python
     route.  Both write the same bytes.  stats: optional dict that receives
-    batch_compress_device's keys; on the "native" route parse_s,
-    symbolize_s (the host symbolizer), assemble_s, the coder's keys and
-    mux_s."""
+    batch_compress_device's keys; on the "native" route parse_s and
+    huffman_s, symbolize_s (the host symbolizer), assemble_s, the coder's
+    keys and mux_s."""
     if symbolizer not in ("jax", "native"):
         raise ValueError(f"no symbolizer {symbolizer!r} (jax or native)")
     if symbolizer == "jax":
@@ -208,35 +220,35 @@ def compress_device(jpeg_data: bytes, num_segments: int = 16,
         raise LeptonError(f"no container version {version}")
     stats = {} if stats is None else stats
     dev = _device(device)
-    t = time.perf_counter()
-    parse = _parse_jpeg_jailed if jailed_parse else _parse
-    try:
-        parsed, info, dec = parse(jpeg_data, allow_progressive,
-                                  allow_four_colors)
-        splits, num_threads = _plan(dec, num_segments)
-    except Exception as e:
-        raise request_error(0, e)
-    stats["parse_s"] = time.perf_counter() - t
-    if not _native.available():
-        raise LeptonError("native symbolizer unavailable")
-    t = time.perf_counter()
-    mh, cs = _truncation_geometry(info, dec)
-    img = _native_image(info, dec.planes, mh, cs)
-    bounds = [th.luma_y_start for th in splits] + [info.cmpnfo[0].bcv]
-    # a thread a segment, as the host codec codes them: the C calls drop
-    # the GIL
-    segs = _parallel_map(
-        lambda i: _native.native_symbolize_segment(
-            img, bounds[i], bounds[i + 1], i == len(splits) - 1),
-        range(len(splits)))
-    stats["symbolize_s"] = time.perf_counter() - t
-    idx, bit = batch_encode.symbol_lanes(segs, version != 3, dev, stats)
-    streams = batch_encode.code_lanes(idx, bit, version,
-                                      _model_template_packed(), stats)
-    t = time.perf_counter()
-    out = _container(parsed, dec, splits, num_threads, streams, version)
-    stats["mux_s"] = time.perf_counter() - t
-    return out
+    with timing.call(stats, "encode"):
+        parse = _parse_jpeg_jailed if jailed_parse else _parse
+        with timing.span("parse", "parse_s", stage="TS_JPEG_DECODE"), \
+                timing.span("parse.image", image=0):
+            try:
+                parsed, info, dec = parse(jpeg_data, allow_progressive,
+                                          allow_four_colors)
+                with timing.span("parse.plan"):
+                    splits, num_threads = _plan(dec, num_segments)
+            except Exception as e:
+                raise request_error(0, e)
+        if not _native.available():
+            raise LeptonError("native symbolizer unavailable")
+        with timing.span("symbolize", "symbolize_s"):
+            mh, cs = _truncation_geometry(info, dec)
+            img = _native_image(info, dec.planes, mh, cs)
+            bounds = [th.luma_y_start for th in splits] + [info.cmpnfo[0].bcv]
+            # a thread a segment, as the host codec codes them: the C calls
+            # drop the GIL
+            segs = _parallel_map(
+                lambda i: _native.native_symbolize_segment(
+                    img, bounds[i], bounds[i + 1], i == len(splits) - 1),
+                range(len(splits)))
+        idx, bit = batch_encode.symbol_lanes(segs, version != 3, dev, stats)
+        streams = batch_encode.code_lanes(idx, bit, version,
+                                          _model_template_packed(), stats)
+        with timing.span("container", "mux_s", stage="TS_STREAM_MULTIPLEX"):
+            return _container(parsed, dec, splits, num_threads, streams,
+                              version)
 
 
 def _decode_request(lep_data: bytes, i: int = 0):
@@ -284,18 +296,12 @@ def _request_error(i: int, e: Exception) -> LeptonError:
 
 def _timed_decode(inputs: dict, template, dev: torch.device):
     """(coef, err, ms) of one decode_lanes launch; ms by CUDA events on the
-    card, the host clock on the CPU."""
-    if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        coef, err = vpx_decoder.decode_lanes(**inputs, template=template)
-        end.record()
-        end.synchronize()
-        return coef, err, start.elapsed_time(end)
-    t = time.perf_counter()
-    coef, err = vpx_decoder.decode_lanes(**inputs, template=template)
-    return coef, err, (time.perf_counter() - t) * 1e3
+    card, the host clock on the CPU (branch_probs.timed)."""
+    got = {}
+    coef, err = timed(lambda: vpx_decoder.decode_lanes(**inputs,
+                                                       template=template),
+                      dev, got, "ms", host=True)
+    return coef, err, got["ms"]
 
 
 def batch_decompress_device(leps, device=None, stats=None,
@@ -335,78 +341,88 @@ def batch_decompress_device(leps, device=None, stats=None,
     mesh, the plans alone), decoder_ms (CUDA events on the card, both
     coders' launches; with a mesh, each coder's longest share), vpx_decoder_ms
     and ans_decoder_ms (each launch; with a mesh, a list of each share's
-    launch), merge_s (with a mesh), d2h_s, recode_s, lanes,
-    max_lane_blocks."""
+    launch), merge_s (with a mesh), d2h_s and d2h_bytes (the planes' and
+    flags' copy to the host), recode_s and recode_native_s (the native
+    re-emit calls in it), lanes, max_lane_blocks.  Each time in seconds
+    is a timing.span's; the ms are CUDA events (branch_probs.timed)."""
     stats = {} if stats is None else stats
     dev = _device(device)
-    t = time.perf_counter()
+    with timing.call(stats, "decode"):
+        return _decompress_batch(leps, dev, stats, per_request, mesh,
+                                 even_shares)
+
+
+def _decompress_batch(leps, dev, stats, per_request, mesh, even_shares):
     out = [None] * len(leps)
     reqs = [None] * len(leps)
     groups = {}
-    for i, lep in enumerate(leps):
-        try:
-            reqs[i] = _decode_request(lep, i)
-        except Exception as e:
-            if not per_request:
-                raise request_error(i, e)
-            out[i] = _request_error(i, e)
-            continue
-        coder = "ans" if reqs[i][1].version == 3 else "vpx"
-        groups.setdefault(coder, []).append(i)
-    stats["read_s"] = time.perf_counter() - t
+    with timing.span("container.read", "read_s"):
+        for i, lep in enumerate(leps):
+            try:
+                with timing.span("container.read.request", image=i):
+                    reqs[i] = _decode_request(lep, i)
+            except Exception as e:
+                if not per_request:
+                    raise request_error(i, e)
+                out[i] = _request_error(i, e)
+                continue
+            coder = "ans" if reqs[i][1].version == 3 else "vpx"
+            groups.setdefault(coder, []).append(i)
     tpl = _model_template_packed()
     if tpl is not None:
         tpl = arena_from_template(tpl)
-    for key in ("plan_s", "decoder_ms", "d2h_s", "lanes", "max_lane_blocks"):
+    for key in ("plan_s", "decoder_ms", "d2h_s", "d2h_bytes", "lanes",
+                "max_lane_blocks"):
         stats[key] = 0
     if mesh is not None:
         stats["merge_s"] = 0
     planes = [None] * len(reqs)
     for coder, members in groups.items():
-        t = time.perf_counter()
-        plan = vpx_decoder.plan_decode([reqs[i][0] for i in members], coder)
-        if mesh is None:
-            inputs = plan.to(dev)
-            batch_encode._sync(dev)
-        stats["plan_s"] += time.perf_counter() - t
+        with timing.span("reader.plan", "plan_s"):
+            plan = vpx_decoder.plan_decode([reqs[i][0] for i in members],
+                                           coder)
+            if mesh is None:
+                inputs = plan.to(dev)
+                batch_encode._sync(dev)
         stats["lanes"] += len(plan.lane_request)
         stats["max_lane_blocks"] = max(stats["max_lane_blocks"], int(
             np.bincount(np.repeat(np.arange(len(plan.lanes)),
                                   plan.lanes[:, 1]),
                         weights=plan.rows[:, 2], minlength=1).max()))
-        if mesh is None:
-            coef, err, ms = _timed_decode(
-                inputs, None if tpl is None else tpl.to(dev), dev)
-            del inputs
-            stats["decoder_ms"] += ms
-        else:
-            from .parallel.mesh import decode_shares
-            coef, err, ms, merge_s = decode_shares(plan, mesh, tpl, dev,
-                                                   even_shares)
-            stats["decoder_ms"] += max(ms)
-            stats["merge_s"] += merge_s
+        with timing.span("reader", stage="TS_ARITH"):
+            if mesh is None:
+                coef, err, ms = _timed_decode(
+                    inputs, None if tpl is None else tpl.to(dev), dev)
+                del inputs
+                stats["decoder_ms"] += ms
+            else:
+                from .parallel.mesh import decode_shares
+                coef, err, ms, merge_s = decode_shares(plan, mesh, tpl, dev,
+                                                       even_shares)
+                stats["decoder_ms"] += max(ms)
+                stats["merge_s"] += merge_s
         stats[f"{coder}_decoder_ms"] = ms
-        t = time.perf_counter()
-        coef, err = coef.cpu().numpy(), err.cpu().numpy()
-        stats["d2h_s"] += time.perf_counter() - t
+        with timing.span("reader.d2h", "d2h_s"):
+            coef, err = coef.cpu().numpy(), err.cpu().numpy()
+        stats["d2h_bytes"] += coef.nbytes + err.nbytes
         for i, res in zip(members, vpx_decoder.split_planes(plan, coef,
                                                             err != 0)):
             planes[i] = res
-    t = time.perf_counter()
-    for i, req in enumerate(reqs):
-        if req is None:
-            continue
-        (p, bad), (_, hdr, handoffs) = planes[i], req
-        try:
-            if bad.any():
-                raise LeptonError(f"request {i}: lepton stream inconsistent "
-                                  "(device decode)")
-            out[i] = _reemit(hdr, handoffs, p)
-        except Exception as e:
-            if not per_request:
-                raise request_error(i, e)
-            out[i] = _request_error(i, e)
-    stats["recode_s"] = time.perf_counter() - t
+    with timing.span("re-emit", "recode_s", stage="TS_JPEG_RECODE"):
+        for i, req in enumerate(reqs):
+            if req is None:
+                continue
+            (p, bad), (_, hdr, handoffs) = planes[i], req
+            try:
+                if bad.any():
+                    raise LeptonError(f"request {i}: lepton stream "
+                                      "inconsistent (device decode)")
+                with timing.span("re-emit.request", image=i):
+                    out[i] = _reemit(hdr, handoffs, p)
+            except Exception as e:
+                if not per_request:
+                    raise request_error(i, e)
+                out[i] = _request_error(i, e)
     return out
 
 

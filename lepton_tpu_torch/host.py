@@ -369,8 +369,9 @@ def _parse(jpeg_data: bytes, allow_progressive: bool = False,
     and the host compress do (batch_compress_tpu's unjailed parse has no
     such check), and a progressive or multi-scan one unless
     allow_progressive."""
-    parsed = parse_jpeg(jpeg_data)
-    info = image_info_from_header(parsed.hdrdata)
+    with timing.span("parse.header"):
+        parsed = parse_jpeg(jpeg_data)
+        info = image_info_from_header(parsed.hdrdata)
     if info.cmpc > 3 and not allow_four_colors:
         raise UnsupportedJpeg("4 colors unsupported")
     return parsed, info, decode_scans(parsed, info,

@@ -19,6 +19,7 @@ from typing import List
 import numpy as np
 
 from ..constants import ZIGZAG_TO_RASTER
+from ..util import timing
 from .bitio import BitReader
 from .huffman import devli
 from .imageinfo import ImageInfo, UnsupportedJpeg, scan_header_segments
@@ -141,10 +142,11 @@ def decode_scans(parsed: ParsedJpeg, info: ImageInfo,
             if use_native:
                 from .. import _native
                 state = np.asarray([mcu] + list(lastdc[:4]), dtype=np.int32)
-                status, newpos, hrecs, padbit = \
-                    _native.native_decode_progressive_scan(
-                        info, parsed.huffdata, reader.pos, offsets,
-                        out.planes, padbit, state, out.max_dpos)
+                with timing.span("parse.huffman", "huffman_s"):
+                    status, newpos, hrecs, padbit = \
+                        _native.native_decode_progressive_scan(
+                            info, parsed.huffdata, reader.pos, offsets,
+                            out.planes, padbit, state, out.max_dpos)
                 if status < 0:
                     raise JpegDecodeError(
                         f"decode error in progressive scan {scnc}")
@@ -177,10 +179,11 @@ def decode_scans(parsed: ParsedJpeg, info: ImageInfo,
             use_native = _native_available()
         if use_native:
             from .. import _native
-            status, newpos, hrecs, padbit, maxd = \
-                _native.native_decode_baseline_scan(
-                    info, parsed.huffdata, reader.pos, offsets,
-                    out.planes, padbit)
+            with timing.span("parse.huffman", "huffman_s"):
+                status, newpos, hrecs, padbit, maxd = \
+                    _native.native_decode_baseline_scan(
+                        info, parsed.huffdata, reader.pos, offsets,
+                        out.planes, padbit)
             if status < 0:
                 raise JpegDecodeError(f"decode error in scan {scnc}")
             reader.pos = newpos

@@ -18,6 +18,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..constants import ZIGZAG_TO_RASTER
+from ..util import timing
 from .bitio import BitWriter
 from .huffman import envli
 from .imageinfo import ImageInfo, scan_header_segments
@@ -228,8 +229,9 @@ def regenerate_scans(hdrdata: bytes, planes, info: ImageInfo, padbit: int,
         if use_native:
             from .. import _native
             try:
-                scan_bytes, rstp_new = _native.native_recode_any_scan(
-                    info, planes_c, info.jpegtype, padbit, pos())
+                with timing.span("re-emit.native", "recode_native_s"):
+                    scan_bytes, rstp_new = _native.native_recode_any_scan(
+                        info, planes_c, info.jpegtype, padbit, pos())
             except RuntimeError:
                 if not truncated:
                     raise

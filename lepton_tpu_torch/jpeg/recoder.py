@@ -17,6 +17,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..constants import RASTER_TO_ZIGZAG
+from ..util import timing
 from .bitio import BitWriter
 from .decoder import ThreadHandoff, _next_mcupos, _next_mcuposn
 from .huffman import envli
@@ -311,7 +312,8 @@ def _recode_native(out: BoundedWriter, byte_position: int, hdrdata: bytes,
         # the host codec's pool: its threads exist before a jail, which
         # bans the stack mmap of a new one (host._warm_pool)
         from ..host import _parallel_map
-        outs = _parallel_map(run_seg, handoffs)
+        with timing.span("re-emit.native", "recode_native_s"):
+            outs = _parallel_map(run_seg, handoffs)
         for i in range(len(handoffs) - 1):
             ob, nb, dc = outs[i][1]
             nxt = handoffs[i + 1]
@@ -357,10 +359,12 @@ def _recode_native(out: BoundedWriter, byte_position: int, hdrdata: bytes,
         running_end = th.luma_y_end
         start_row = running_start // luma_mul
         end_row = running_end // luma_mul
-        pos, running_ob, running_nb, running_dc = _native.native_recode_rows(
-            info, planes_c, start_row, end_row, running_ob, running_nb,
-            running_dc, padbit, rst_cnt, rst_cnt_set,
-            buf, bound, pos, tables=tables, sc=sc)
+        with timing.span("re-emit.native", "recode_native_s"):
+            pos, running_ob, running_nb, running_dc = \
+                _native.native_recode_rows(
+                    info, planes_c, start_row, end_row, running_ob,
+                    running_nb, running_dc, padbit, rst_cnt, rst_cnt_set,
+                    buf, bound, pos, tables=tables, sc=sc)
 
     result = bytearray(buf[:min(pos, bound)].tobytes())
     if rst_err:

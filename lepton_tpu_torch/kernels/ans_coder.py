@@ -137,7 +137,7 @@ def encode_streams_ans(idx: torch.Tensor, bit: torch.Tensor,
     if bool(zero.any()):
         _raise_zero_freq(torch.nonzero(zero).flatten().tolist())
     return bp.timed(lambda: ans_walk(probs, bit, nsyms), idx.device, stats,
-                    "walk_ms")
+                    "walk_ms", name="coder.walk")
 
 
 def _raise_zero_freq(lanes) -> None:

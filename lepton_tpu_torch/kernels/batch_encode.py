@@ -37,7 +37,6 @@ bytes are identical to the host coder's.
 """
 from __future__ import annotations
 
-import time
 from functools import partial
 from typing import List, NamedTuple
 
@@ -46,6 +45,7 @@ import torch
 
 from ..host import LeptonError
 from ..model.tables import arena_from_template
+from ..util import timing
 from .ans_coder import encode_streams_ans, finalize_ans
 from .branch_probs import add_pending, timed
 from .encode_pipeline import plan_rows, segment_top_rows
@@ -122,22 +122,27 @@ def image_plan(im) -> list:
                      im["max_coded_heights"], im["splits_y"])
 
 
-def _upload(a: np.ndarray, dtype, dev) -> torch.Tensor:
+def _upload(a: np.ndarray, dtype, dev, stats=None) -> torch.Tensor:
     """a on dev as dtype: on the card through pinned host memory, queued
     on the current stream without waiting (torch's pinned allocator keeps
-    the host buffer until the copy is done)."""
-    if dev.type != "cuda":
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
-    host = torch.empty(a.shape, dtype=dtype, pin_memory=True)
-    host.numpy()[...] = a
-    return host.to(dev, non_blocking=True)
+    the host buffer until the copy is done).  stats: optional dict whose
+    stage_s (the span symbolize.stage) and stage_bytes (the bytes staged)
+    it adds to (default: the open call's)."""
+    with timing.span("symbolize.stage", "stage_s", stats=stats):
+        timing.add("stage_bytes", a.size * dtype.itemsize, stats)
+        if dev.type != "cuda":
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   device=dev).to(dtype)
+        host = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+        host.numpy()[...] = a
+        return host.to(dev, non_blocking=True)
 
 
-def image_planes(im, plan, dev):
+def image_planes(im, plan, dev, stats=None):
     """Each plane of one image as plane_inputs takes it: (component, int16
     coefficients [H, W, 64] copied to dev, the model's colour index, its
     ColorTables, row_has_above bool [H] on dev (False at row 0 and at each
-    segment's top row), size_limit)."""
+    segment's top row), size_limit).  stats: as _upload takes it."""
     cix = im.get("color_index")
     tops = segment_top_rows(plan, len(im["planes"]))
     for c, p in enumerate(im["planes"]):
@@ -145,8 +150,9 @@ def image_planes(im, plan, dev):
         rha[0] = False
         rha[sorted(tops[c])] = False
         ci = (0 if c == 0 else 1) if cix is None else cix(c)
-        yield (c, _upload(p, torch.int16, dev), ci, im["color_tables"][c],
-               _upload(rha, torch.bool, dev), im["component_sizes"][c])
+        yield (c, _upload(p, torch.int16, dev, stats), ci,
+               im["color_tables"][c], _upload(rha, torch.bool, dev, stats),
+               im["component_sizes"][c])
 
 
 def _ranges(segment_range, plans) -> list:
@@ -196,12 +202,17 @@ def symbolize_images(images, device="cuda", stats=None,
     whole, as its top-row masks depend on every split; one without is not
     symbolized.  Every plane is uploaded and counted before the batch's
     one host read; then each plane's symbols are written into one output.
-    stats: optional dict that receives symbolize_s and, on the card, the
-    symbol kernels' CUDA-event ms summed over the planes (symbol_counts_ms,
+    stats: optional dict that receives symbolize_s (the span symbolize),
+    stage_s and stage_bytes (_upload) and, on the card, the symbol
+    kernels' CUDA-event ms summed over the planes (symbol_counts_ms,
     symbol_emit_ms)."""
     dev = torch.device(device)
     stats = {} if stats is None else stats
-    t = time.perf_counter()
+    with timing.span("symbolize", "symbolize_s", stats=stats):
+        return _symbolize(images, dev, stats, segment_range)
+
+
+def _symbolize(images, dev, stats, segment_range) -> Symbols:
     kernels = _kernel_route(dev)
     counted, plane_base, pending = [], {}, []
     plans = [image_plan(im) for im in images]
@@ -209,14 +220,16 @@ def symbolize_images(images, device="cuda", stats=None,
     for d, (im, plan) in enumerate(zip(images, plans)):
         if ranges[d][0] == ranges[d][1]:
             continue                # no lane of this image: nothing to code
-        for c, *args in image_planes(im, plan, dev):
+        for c, *args in image_planes(im, plan, dev, stats):
             plane = plane_inputs(*args)
-            counted.append((plane,) + _count_plane(plane, kernels, stats,
-                                                   pending))
+            with timing.span("symbolize.count", image=d):
+                counted.append((plane,) + _count_plane(plane, kernels, stats,
+                                                       pending))
             plane_base[d, c] = len(counted) - 1
     # one device-to-host copy: every plane's total, then every row count
-    host = torch.cat([x[2] for x in counted] + [x[3] for x in counted]
-                     ).cpu().numpy() if counted else np.zeros(0, np.int64)
+    with timing.span("symbolize.read"):
+        host = torch.cat([x[2] for x in counted] + [x[3] for x in counted]
+                         ).cpu().numpy() if counted else np.zeros(0, np.int64)
     totals, row_counts = host[:len(counted)], host[len(counted):]
     first_row = np.cumsum([0] + [len(x[3]) for x in counted])
     for (d, c), p in plane_base.items():
@@ -228,15 +241,16 @@ def symbolize_images(images, device="cuda", stats=None,
     np.cumsum(row_counts, out=row_off[1:])
     sym_i = torch.empty(int(totals.sum()), dtype=torch.int32, device=dev)
     sym_b = torch.empty(len(sym_i), dtype=torch.uint8, device=dev)
+    image_of = {p: d for (d, _), p in plane_base.items()}
     at = 0
     for p, (plane, offsets, _, _, runs) in enumerate(counted):
         n = int(totals[p])
-        _emit_plane(plane, offsets, n, runs, kernels, stats, pending,
-                    (sym_i[at:at + n], sym_b[at:at + n]))
+        with timing.span("symbolize.emit", image=image_of[p]):
+            _emit_plane(plane, offsets, n, runs, kernels, stats, pending,
+                        (sym_i[at:at + n], sym_b[at:at + n]))
         counted[p] = None       # the plane's coefficients are not needed
         at += n
     _sync(dev)
-    stats["symbolize_s"] = time.perf_counter() - t
     add_pending(stats, pending)
     return Symbols(sym_i, sym_b, row_counts, row_off, first_row, plane_base,
                    plans, ranges)
@@ -252,12 +266,17 @@ def lanes(sym: Symbols, framed: bool = True, stats=None,
     [S, L], bit uint8 [S, L], owners), where lane s codes segment
     owners[s][1] (the image's own segment number) of image owners[s][0],
     PAD after its symbols.  stats: optional dict that receives
-    assemble_s, lanes, symbols and max_lane_symbols."""
-    dev = sym.idx.device
+    assemble_s (the span coder.lanes), lanes, symbols and
+    max_lane_symbols."""
     stats = {} if stats is None else stats
     ranges = sym.ranges if segment_range is None \
         else _ranges(segment_range, sym.plans)
-    t = time.perf_counter()
+    with timing.span("coder.lanes", "assemble_s", stats=stats):
+        return _assemble(sym, framed, stats, ranges)
+
+
+def _assemble(sym: Symbols, framed: bool, stats, ranges):
+    dev = sym.idx.device
     runs, owners = [], []
     for d, (plan, (lo, hi)) in enumerate(zip(sym.plans, ranges)):
         if lo < hi and (d, 0) not in sym.plane_base:
@@ -286,7 +305,6 @@ def lanes(sym: Symbols, framed: bool = True, stats=None,
             bit[s, head:head + n] = torch.cat([sym.bit[a:a + k]
                                                for a, k in lane])
     _sync(dev)
-    stats["assemble_s"] = time.perf_counter() - t
     stats["lanes"] = S
     stats["symbols"] = int(sum(lengths))
     stats["max_lane_symbols"] = L
@@ -348,27 +366,26 @@ def symbol_lanes(segments, framed: bool = True, device="cuda", stats=None):
     lepton_tpu/kernels/vpx_scan.py:119 build_symbol_streams frames them);
     False gives the unframed lanes of rANS.  Returns (idx int32 [S, L],
     bit uint8 [S, L]) on `device`, PAD after each lane's symbols.  stats:
-    optional dict that receives assemble_s (host framing and upload),
-    lanes, symbols and max_lane_symbols."""
+    optional dict that receives assemble_s (host framing and upload; the
+    span coder.lanes), lanes, symbols and max_lane_symbols."""
     dev = torch.device(device)
     stats = {} if stats is None else stats
-    t = time.perf_counter()
-    head, tail = (1, STOP_BITS) if framed else (0, 0)
-    lengths = [head + len(i) + tail for i, _ in segments]
-    S, L = len(segments), max(lengths, default=0)
-    idx = np.full((S, L), PAD, dtype=np.int32)
-    bit = np.zeros((S, L), dtype=np.uint8)
-    for s, (i, b) in enumerate(segments):
-        n = len(i)
-        if framed:
-            idx[s, 0] = FIXED_PROB                  # marker bit 0
-            idx[s, 1 + n:lengths[s]] = FIXED_PROB   # stop bits 0
-        idx[s, head:head + n] = i
-        bit[s, head:head + n] = b
-    idx = torch.as_tensor(idx, device=dev)
-    bit = torch.as_tensor(bit, device=dev)
-    _sync(dev)
-    stats["assemble_s"] = time.perf_counter() - t
+    with timing.span("coder.lanes", "assemble_s", stats=stats):
+        head, tail = (1, STOP_BITS) if framed else (0, 0)
+        lengths = [head + len(i) + tail for i, _ in segments]
+        S, L = len(segments), max(lengths, default=0)
+        idx = np.full((S, L), PAD, dtype=np.int32)
+        bit = np.zeros((S, L), dtype=np.uint8)
+        for s, (i, b) in enumerate(segments):
+            n = len(i)
+            if framed:
+                idx[s, 0] = FIXED_PROB                  # marker bit 0
+                idx[s, 1 + n:lengths[s]] = FIXED_PROB   # stop bits 0
+            idx[s, head:head + n] = i
+            bit[s, head:head + n] = b
+        idx = torch.as_tensor(idx, device=dev)
+        bit = torch.as_tensor(bit, device=dev)
+        _sync(dev)
     stats["lanes"] = S
     stats["symbols"] = int(sum(lengths))
     stats["max_lane_symbols"] = L
@@ -381,33 +398,23 @@ def code_lanes(idx: torch.Tensor, bit: torch.Tensor, version: int = 1,
     [S, L] (lanes() or symbol_lanes()), one a lane, coded on their device
     by the VPX coder (version 1 or 2) or the ANS coder (version 3); no
     lane, no launch.  version, template and stats as encode_symbols takes
-    them."""
+    them; the whole coder's time (coder_ms or ans_coder_ms) is
+    branch_probs.timed's, the host clock off the card."""
     stats = {} if stats is None else stats
     dev = idx.device
     ans = version == 3
     if not len(idx):
         return []
-    tpl = None if template is None else arena_from_template(template).to(dev)
-    if ans:
-        # every symbol of an unframed lane is a branch; PAD follows them
-        nsyms = (idx != PAD).sum(1, dtype=torch.int32)
-        run = partial(encode_streams_ans, idx, bit, nsyms, tpl, stats)
-    else:
-        run = partial(encode_streams, idx, bit, tpl, stats)
-    if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out, nout = run()
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end)
-    else:
-        t = time.perf_counter()
-        out, nout = run()
-        ms = (time.perf_counter() - t) * 1e3
-    stats["ans_coder_ms" if ans else "coder_ms"] = ms
-    t = time.perf_counter()
-    streams = finalize_ans(out, nout) if ans else finalize(out, nout)
-    stats["finalize_s"] = time.perf_counter() - t
-    return streams
+    with timing.span("coder", stage="TS_ARITH"):
+        tpl = None if template is None \
+            else arena_from_template(template).to(dev)
+        if ans:
+            # every symbol of an unframed lane is a branch; PAD follows them
+            nsyms = (idx != PAD).sum(1, dtype=torch.int32)
+            run = partial(encode_streams_ans, idx, bit, nsyms, tpl, stats)
+        else:
+            run = partial(encode_streams, idx, bit, tpl, stats)
+        out, nout = timed(run, dev, stats,
+                          "ans_coder_ms" if ans else "coder_ms", host=True)
+        with timing.span("coder.finalize", "finalize_s", stats=stats):
+            return finalize_ans(out, nout) if ans else finalize(out, nout)

@@ -37,11 +37,13 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import time
 from typing import Optional
 
 import torch
 
 from ..model.tables import ARENA_SIZE, IDENTITY_BRANCH
+from ..util import timing
 from . import cuda_build
 
 RULES = ("vpx", "adv")
@@ -101,13 +103,23 @@ def grow(walk, cap: int):
         cap = need
 
 
-def timed(fn, dev, stats, key, pending=None):
-    """fn(), with its CUDA-event time in stats[key] when stats is given and
-    dev is a CUDA device.  pending: a list that takes (key, start, end) in
-    place of the wait, for the caller to add to stats after a later sync
-    (add_pending)."""
-    if stats is None or dev.type != "cuda":
+def timed(fn, dev, stats, key, pending=None, host=False, name=None):
+    """fn(), with its time in ms in stats[key] when stats is given: by CUDA
+    events on a CUDA device; off the card by the host clock where host is
+    True, else not at all.  pending: a list that takes (key, start, end)
+    in place of the wait, for the caller to add to stats after a later
+    sync (add_pending).  name: a timing.span around fn (on the calling
+    thread)."""
+    if name is not None:
+        with timing.span(name):
+            return timed(fn, dev, stats, key, pending, host)
+    if stats is None or (dev.type != "cuda" and not host):
         return fn()
+    if dev.type != "cuda":
+        t = time.perf_counter()
+        r = fn()
+        stats[key] = (time.perf_counter() - t) * 1e3
+        return r
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -232,7 +244,7 @@ def branch_probs(idx: torch.Tensor, bit: torch.Tensor,
     check(idx, bit, template, rule, nsyms)
     dev = idx.device
     keys, shift = timed(lambda: group(idx, bit, nsyms), dev, stats,
-                        "sort_ms")
+                        "sort_ms", name="coder.sort")
 
     def kernels():
         heads = timed(lambda: run_heads(keys, shift), dev, stats, "heads_ms")
@@ -240,7 +252,8 @@ def branch_probs(idx: torch.Tensor, bit: torch.Tensor,
             lambda: walk_runs(keys, shift, heads, idx.shape, template, rule),
             dev, stats, "runs_ms")
 
-    nruns, (probs, zero, longest) = timed(kernels, dev, stats, "probs_ms")
+    nruns, (probs, zero, longest) = timed(kernels, dev, stats, "probs_ms",
+                                          name="coder.probs")
     if stats is not None:
         stats.update(live=keys.numel(), runs=nruns, longest_run=longest)
     return probs, zero

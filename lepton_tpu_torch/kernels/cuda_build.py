@@ -29,6 +29,7 @@ import time
 from typing import Dict, Iterable, Optional
 
 from .._native import BUILD_DIR
+from ..util import timing
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -133,7 +134,13 @@ def build(names: Iterable[str], variants=None) -> Dict[str, float]:
     and is renamed when done.  variants: the builds of each source
     (default: the one LEPTON_TORCH_CHECKED_KERNELS asks for).  Returns the
     seconds each build took, by library stem (variant())."""
+    names = list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with timing.span("build." + "+".join(names)):
+        return _build(names, variants)
+
+
+def _build(names, variants) -> Dict[str, float]:
     t0 = time.perf_counter()
     jobs = {}
     try:

@@ -101,7 +101,7 @@ def encode_streams(idx: torch.Tensor, bit: torch.Tensor,
     _check_low(idx)
     probs, _ = bp.branch_probs(idx, bit, template, "vpx", stats=stats)
     return bp.timed(lambda: vpx_walk(idx, bit, probs), idx.device, stats,
-                    "walk_ms")
+                    "walk_ms", name="coder.walk")
 
 
 def vpx_walk(idx: torch.Tensor, bit: torch.Tensor, probs: torch.Tensor):

@@ -6,14 +6,24 @@ it at exit; this is that matrix, plus a span summary derived from
 *_BEGIN/_END event pairs.  Enabled via LEPTON_TIMING or the -timing=
 flag (cli); survives the jail (pure userspace clock reads).
 
-Copy of lepton_tpu/util/timing.py (120 lines).
+The matrix and print_timing are a copy of lepton_tpu/util/timing.py.  The
+port adds the spans of its device paths: call() opens a device entry
+point's call (its stats dict and a call id, in a context variable) and
+span() times one stage of it.  One span adds its seconds to a key of the
+call's stats, marks NAME_BEGIN/NAME_END (and a reference stage's
+_STARTED/_FINISHED) for -timing=, and, while torch.profiler records, opens
+a record_function range "lepton:NAME" on the profiler's timeline.  This
+module imports no torch: it reads the profiler's flag through
+sys.modules, so the host path never loads it.
 """
 from __future__ import annotations
 
+import contextvars
+import itertools
 import os
 import sys
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # the reference's exact stage vocabulary (jpgcoder.hh:26-46)
 STAGES = [
@@ -120,3 +130,105 @@ def restore(snap) -> None:
     for row, src in zip(_matrix, matrix):
         row[:] = src
     _events[:] = events
+
+
+# the open call of this context: (its stats dict, its call id)
+_call: contextvars.ContextVar = contextvars.ContextVar("lepton_call",
+                                                       default=None)
+_call_ids = itertools.count(1)
+_profiler = None        # torch.autograd.profiler, once torch is loaded
+PREFIX = "lepton:"
+
+
+def _recording():
+    """torch.autograd.profiler while torch.profiler records, else None."""
+    global _profiler
+    if _profiler is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return None
+        _profiler = torch.autograd.profiler
+    return _profiler if _profiler._is_profiler_enabled else None
+
+
+def add(key: str, value, stats: Optional[dict] = None) -> None:
+    """Add value to stats[key] (default: the open call's stats; nothing
+    outside a call)."""
+    c = _call.get()
+    if stats is None and c is not None:
+        stats = c[0]
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + value
+
+
+class span:
+    """One stage on the calling thread: adds its host-clock seconds to
+    stats[key] (stats: default the open call's; no key or no call, no
+    write), marks NAME_BEGIN/NAME_END and the reference stage's
+    STAGE_STARTED/STAGE_FINISHED under -timing=, and while torch.profiler
+    records opens record_function("lepton:" + name) with the args
+    "call=<id>" and "image=<i>"."""
+
+    __slots__ = ("name", "key", "stage", "image", "stats", "_rf", "_t")
+
+    def __init__(self, name: str, key: Optional[str] = None,
+                 stage: Optional[str] = None, image: Optional[int] = None,
+                 stats: Optional[dict] = None):
+        self.name, self.key, self.stage = name, key, stage
+        self.image, self.stats, self._rf = image, stats, None
+
+    def __enter__(self):
+        c = _call.get()
+        if self.stats is None and c is not None:
+            self.stats = c[0]
+        if _enabled:
+            mark(self.name + "_BEGIN")
+            if self.stage:
+                mark(self.stage + "_STARTED")
+        prof = _recording()
+        if prof is not None:
+            args = [] if c is None else [f"call={c[1]}"]
+            if self.image is not None:
+                args.append(f"image={self.image}")
+            self._rf = prof.record_function(PREFIX + self.name,
+                                            " ".join(args) or None)
+            self._rf.__enter__()
+        self._t = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        if _enabled:
+            if self.stage:
+                mark(self.stage + "_FINISHED")
+            mark(self.name + "_END")
+        if self.key is not None and self.stats is not None:
+            self.stats[self.key] = self.stats.get(self.key, 0.0) + dt
+        return False
+
+
+class call:
+    """A device entry point's call: its stats dict and a new call id for
+    the spans inside it (on this thread and in this context), under the
+    span entry.<entry>."""
+
+    __slots__ = ("_span", "_token", "stats", "id")
+
+    def __init__(self, stats: dict, entry: str):
+        self.stats, self.id = stats, next(_call_ids)
+        self._span = span("entry." + entry)
+
+    def __enter__(self):
+        self._token = _call.set((self.stats, self.id))
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self._span.__exit__(*exc)
+        finally:
+            _call.reset(self._token)
+        return False

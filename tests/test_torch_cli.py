@@ -329,6 +329,18 @@ def test_recodememory_and_timing(tmp_path):
     assert "TS_ARITH_FINISHED" in log.read_text()
 
 
+def test_device_decode_timing(tmp_path):
+    """-timing= on the device route (-device=cpu): a .lep's decode writes
+    the reference's re-emit stage rows and the spans' lines."""
+    data = _jpeg(48, 32, seed=44, quality=85)
+    src, back, log = (tmp_path / n for n in ("in.lep", "b.jpg", "t.log"))
+    src.write_bytes(japi.compress(data, max_threads=2, min_threads=2))
+    r = _port(["-device=cpu", f"-timing={log}", str(src), str(back)])
+    assert r.returncode == 0 and back.read_bytes() == data
+    text = log.read_text()
+    assert "TS_JPEG_RECODE_FINISHED" in text and "[re-emit]" in text
+
+
 def test_fork_server(tmp_path):
     """-fork names a FIFO pair on stdout for each request and transcodes
     what is written to the first into the second; it exits when its stdin
