@@ -5,8 +5,9 @@ Encode: port of lepton_tpu.api.compress_tpu / batch_compress_tpu
 baseline single-scan (mode Z) or, with allow_progressive, progressive and
 multi-scan (mode X), into containers v1, v2 (VPX lanes; the header zlib or
 brotli) and v3 (rANS lanes, brotli header).  Pipeline: host parse + Huffman
-decode of every scan to coefficient planes and handoffs, thread splits,
-then phase A, symbolization and the VPX or ANS coder on the device
+decode of every scan to coefficient planes and handoffs, the images of a
+batch at once on the host pool, thread splits, then phase A,
+symbolization and the VPX or ANS coder on the device
 (kernels/batch_encode.py), then the VPX stop-byte rule or the rANS word
 order, the mux and the .lep header on the host.  The output is
 byte-identical to the JAX package's.  compress_device(symbolizer="native")
@@ -50,7 +51,7 @@ from .container.mux import MuxReader, mux_streams
 # the host codec, re-exported beside the device entry points
 from .host import (LeptonError, _container_end,  # noqa: F401
                    _handoffs, _model_template_packed, _native_image,
-                   _parallel_map, _parse,
+                   _parallel_map, _parse, _workers,
                    _parse_jpeg_jailed, _reemit, _truncation_geometry,
                    compress, compress_any, decompress, decompress_all,
                    decompress_streaming, generic_compress, pack_model,
@@ -139,11 +140,13 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
     the caller must have pre-imported the parse modules
     (cli._prepare_for_jail).
     stats: optional dict that receives the stage times and counts: parse_s
-    (host parse + Huffman) and huffman_s (the native scan decodes in it;
-    not with jailed_parse), stage_s and stage_bytes (coefficients copied
-    into pinned memory), symbolize_s, assemble_s, coder_ms or, for
-    version 3, ans_coder_ms (CUDA events on the card), finalize_s, mux_s,
-    lanes, symbols, max_lane_symbols.  Each time is a timing.span's."""
+    (host parse + Huffman, the wall on this thread), huffman_s (the native
+    scan decodes in it, summed over images; not with jailed_parse),
+    parse_image_s and parse_workers (_parse_images), stage_s and
+    stage_bytes (coefficients copied into pinned memory), symbolize_s,
+    assemble_s, coder_ms or, for version 3, ans_coder_ms (CUDA events on
+    the card), finalize_s, mux_s, lanes, symbols, max_lane_symbols.  Each
+    time is a timing.span's."""
     if version not in (1, 2, 3):
         raise LeptonError(f"no container version {version}")
     stats = {} if stats is None else stats
@@ -153,11 +156,11 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
     if len(num_segments) != len(jpeg_blobs):
         raise ValueError(f"{len(num_segments)} segment counts for "
                          f"{len(jpeg_blobs)} JPEGs")
-    parse = _parse_jpeg_jailed if jailed_parse else _parse
     with timing.call(stats, "encode"):
         with timing.span("parse", "parse_s", stage="TS_JPEG_DECODE"):
-            metas, descs = _parse_images(jpeg_blobs, num_segments, parse,
-                                         allow_progressive, allow_four_colors)
+            metas, descs = _parse_images(jpeg_blobs, num_segments,
+                                         jailed_parse, allow_progressive,
+                                         allow_four_colors)
         all_streams = batch_encode.encode_images_device(
             descs, version, template=_model_template_packed(), device=dev,
             stats=stats)
@@ -168,25 +171,49 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
                     in zip(metas, all_streams)]
 
 
-def _parse_images(jpeg_blobs, num_segments, parse, allow_progressive,
-                  allow_four_colors):
-    """(metas, descs) of a batch: each JPEG parsed by `parse` (span
-    parse.image) and its segments planned (parse.plan)."""
-    metas, descs = [], []
-    for i, (data, nseg) in enumerate(zip(jpeg_blobs, num_segments)):
+def _parse_images(jpeg_blobs, num_segments, jailed_parse,
+                  allow_progressive, allow_four_colors):
+    """(metas, descs) of a batch: each JPEG parsed (span parse.image) and
+    its segments planned (parse.plan).  The images parse at once on the
+    host pool (host._parallel_map; the native scan decodes drop the GIL),
+    an image a job, and come back in their order; the request error of the
+    first image that fails is raised.  They parse one after another on
+    this thread where the pool has one worker (one image, one CPU), and
+    with jailed_parse: each forks a child, and a fork while other threads
+    run can leave the child a lock that no thread of it will release.
+    Stats: parse_workers, the threads the parse ran on; parse_image_s, the
+    parse.image spans' seconds summed over images."""
+    parse = _parse_jpeg_jailed if jailed_parse else _parse
+
+    def one(i):
         # what a request's bytes make fail here raises one of
-        # REQUEST_ERRORS; an error of the stages after this loop is the card's
-        with timing.span("parse.image", image=i):
+        # REQUEST_ERRORS; an error of the stages after the parse is the
+        # card's
+        with timing.span("parse.image", "parse_image_s", image=i):
             try:
-                parsed, info, dec = parse(data, allow_progressive,
+                parsed, info, dec = parse(jpeg_blobs[i], allow_progressive,
                                           allow_four_colors)
                 with timing.span("parse.plan"):
-                    splits, num_threads = _plan(dec, nseg)
-                    descs.append(_describe(info, dec, splits))
+                    splits, num_threads = _plan(dec, num_segments[i])
+                    desc = _describe(info, dec, splits)
             except Exception as e:
                 raise request_error(i, e)
-        metas.append((parsed, dec, splits, num_threads))
-    return metas, descs
+        return (parsed, dec, splits, num_threads), desc
+
+    n = len(jpeg_blobs)
+    workers = 1 if jailed_parse else _workers(n)
+    timing.add("parse_workers", workers)
+    if workers == 1:
+        done = [one(i) for i in range(n)]
+    else:
+        done = []
+        for got, err, part in _parallel_map(timing.in_call(one), range(n)):
+            for key, value in part.items():
+                timing.add(key, value)
+            if err is not None:
+                raise err
+            done.append(got)
+    return [m for m, _ in done], [d for _, d in done]
 
 
 def compress_device(jpeg_data: bytes, num_segments: int = 16,

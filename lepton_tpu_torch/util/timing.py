@@ -8,11 +8,12 @@ flag (cli); survives the jail (pure userspace clock reads).
 
 The matrix and print_timing are a copy of lepton_tpu/util/timing.py.  The
 port adds the spans of its device paths: call() opens a device entry
-point's call (its stats dict and a call id, in a context variable) and
-span() times one stage of it.  One span adds its seconds to a key of the
-call's stats, marks NAME_BEGIN/NAME_END (and a reference stage's
-_STARTED/_FINISHED) for -timing=, and, while torch.profiler records, opens
-a record_function range "lepton:NAME" on the profiler's timeline.  This
+point's call (its stats dict and a call id, in a context variable),
+span() times one stage of it, and in_call() carries the call onto a pool
+thread.  One span adds its seconds to a key of the call's stats, marks
+NAME_BEGIN/NAME_END (and a reference stage's _STARTED/_FINISHED) for
+-timing=, and, while torch.profiler records, opens a record_function range
+"lepton:NAME" on the profiler's timeline.  This
 module imports no torch: it reads the profiler's flag through
 sys.modules, so the host path never loads it.
 """
@@ -100,13 +101,15 @@ def print_timing(file=None) -> None:
             if ts > 0.0:
                 file.write(f"{name}\t({t})\t{ts - t0:.6f}\n")
     spans: Dict[str, float] = {}
-    begins: Dict[str, float] = {}
+    # spans of one name may overlap (pool threads): a sum of ends less
+    # begins is their total whichever begin an end is paired with
+    begins: Dict[str, List[float]] = {}
     for name, t in _events:
         if name.endswith("_BEGIN"):
-            begins[name[:-6]] = t
-        elif name.endswith("_END") and name[:-4] in begins:
+            begins.setdefault(name[:-6], []).append(t)
+        elif name.endswith("_END") and begins.get(name[:-4]):
             base = name[:-4]
-            spans[base] = spans.get(base, 0.0) + (t - begins.pop(base))
+            spans[base] = spans.get(base, 0.0) + (t - begins[base].pop())
     for name, dt in sorted(spans.items(), key=lambda kv: -kv[1]):
         file.write(f"  [{name}] {dt * 1e3:.2f} ms\n")
 
@@ -161,9 +164,30 @@ def add(key: str, value, stats: Optional[dict] = None) -> None:
         stats[key] = stats.get(key, 0) + value
 
 
+def in_call(fn):
+    """fn made to run on a pool thread as a part of the call open on this
+    thread: each run has the call's id and a stats dict of its own, and
+    returns (fn's result or None, the exception it raised or None, that
+    dict), which this thread then adds to the call's stats.  So no two
+    threads write one dict, and no update is lost."""
+    c = _call.get()
+
+    def run(*args):
+        own = {}
+        token = _call.set(None if c is None else (own, c[1]))
+        try:
+            return fn(*args), None, own
+        except Exception as e:
+            return None, e, own
+        finally:
+            _call.reset(token)
+    return run
+
+
+
 class span:
-    """One stage on the calling thread: adds its host-clock seconds to
-    stats[key] (stats: default the open call's; no key or no call, no
+    """One stage on the thread that opens it: adds its host-clock seconds
+    to stats[key] (stats: default the open call's; no key or no call, no
     write), marks NAME_BEGIN/NAME_END and the reference stage's
     STAGE_STARTED/STAGE_FINISHED under -timing=, and while torch.profiler
     records opens record_function("lepton:" + name) with the args

@@ -6,11 +6,13 @@ Inputs are tiny PIL-made JPEGs; device="cpu" runs the plain versions."""
 import io
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
 import torch
 from PIL import Image
+from torch._C._profiler import _ExperimentalConfig
 from torch.profiler import ProfilerActivity, profile
 
 from benchmark import spec, trace
@@ -36,9 +38,9 @@ PARENT = {
     "reader.d2h": "entry.decode", "re-emit": "entry.decode",
     "re-emit.request": "re-emit", "re-emit.native": "re-emit.request",
 }
-ENCODE_KEYS = {"parse_s", "huffman_s", "stage_s", "stage_bytes",
-               "symbolize_s", "assemble_s", "coder_ms", "finalize_s",
-               "mux_s"}
+ENCODE_KEYS = {"parse_s", "huffman_s", "parse_image_s", "parse_workers",
+               "stage_s", "stage_bytes", "symbolize_s", "assemble_s",
+               "coder_ms", "finalize_s", "mux_s"}
 DECODE_KEYS = {"read_s", "plan_s", "decoder_ms", "d2h_s", "d2h_bytes",
                "recode_s", "recode_native_s"}
 
@@ -68,14 +70,14 @@ def _round_trip():
 
 class _Recorder:
     """record_function in the span's place: the real range, and its
-    (name, args) in order of entry."""
+    (name, args, thread) in order of entry."""
 
     def __init__(self):
         self.real = torch.autograd.profiler.record_function
         self.entered = []
 
     def __call__(self, name, args=None):
-        self.entered.append((name, args))
+        self.entered.append((name, args, threading.get_ident()))
         return self.real(name, args)
 
 
@@ -83,41 +85,70 @@ def _args(text):
     return dict(kv.split("=") for kv in (text or "").split())
 
 
+def _by_thread(rows):
+    """The names of (thread, name) rows, a list a thread, sorted."""
+    out = {}
+    for thread, name in rows:
+        out.setdefault(thread, []).append(name)
+    return sorted(out.values())
+
+
 def test_spans_under_the_profiler(monkeypatch):
     """Every span of the tentpole is recorded on the profiler's timeline
-    as lepton:<name>, inside its parent; all spans of a call carry its
-    call id, and each image has its own parse.image and re-emit.request
-    with its image= argument."""
+    as lepton:<name>, on the thread that opened it, inside its parent
+    among that thread's spans; a parse.image that a pool thread opened
+    (the parse's pool route) lies inside the calling thread's parse.  All
+    spans of a call carry its call id, and each image has its own
+    parse.image and re-emit.request with its image= argument."""
     rec = _Recorder()
     monkeypatch.setattr(torch.autograd.profiler, "record_function", rec)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _round_trip()
+    # the profiler records a thread it was not started on only when asked
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
+        enc, _ = _round_trip()
     events = sorted(
-        [(e.start_ns(), -e.end_ns(), e.name()[len(timing.PREFIX):])
+        [(e.start_ns(), -e.end_ns(), e.name()[len(timing.PREFIX):],
+          e.start_thread_id())
          for e in prof.profiler.kineto_results.events()
          if e.name().startswith(timing.PREFIX)])
-    names = [n for _, _, n in events]
-    assert names == [n[len(timing.PREFIX):] for n, _ in rec.entered]
+    names = [n for _, _, n, _ in events]
+    # each thread's spans in the order that thread entered them
+    assert _by_thread([(t, n) for _, _, n, t in events]) == _by_thread(
+        [(t, n[len(timing.PREFIX):]) for n, _, t in rec.entered])
     assert set(names) == set(PARENT) | {"entry.encode", "entry.decode"}
-    for k, (s, neg_e, name) in enumerate(events):
+    caller = {t for _, _, n, t in events if n == "entry.encode"}
+    parse = [(s, -e) for s, e, n, t in events if n == "parse"]
+    assert len(caller) == 1 and len(parse) == 1
+    for k, (s, neg_e, name, thread) in enumerate(events):
         if name.startswith("entry."):
             continue
-        # the innermost span open at this one's start is its parent
-        up = [(s2, -e2, n2) for s2, e2, n2 in events[:k]
-              if s2 <= s and -e2 >= -neg_e]
-        assert up and up[-1][2] == PARENT[name], name
-    args = [_args(a) for _, a in rec.entered]
+        # the innermost span of its thread open at this one's start is its
+        # parent
+        up = [n2 for s2, e2, n2, t2 in events[:k]
+              if t2 == thread and s2 <= s and -e2 >= -neg_e]
+        if name == "parse.image":
+            assert parse[0][0] <= s and -neg_e <= parse[0][1]
+            # on a pool thread it has no parent of its own thread
+            on_pool = enc["parse_workers"] > 1
+            assert (thread in caller) != on_pool
+            assert up[-1:] == ([] if on_pool else ["parse"])
+        else:
+            assert up and up[-1] == PARENT[name], name
+    entered = [(n[len(timing.PREFIX):], _args(a)) for n, a, _ in rec.entered]
     calls = {}
-    for name, a in zip(names, args):
+    for name, a in entered:
         calls.setdefault(a["call"], set()).add(name)
     assert len(calls) == 2
     enc_id, dec_id = sorted(calls, key=int)
     assert "entry.encode" in calls[enc_id] and "re-emit" not in \
         calls[enc_id]
     assert "entry.decode" in calls[dec_id] and "parse" not in calls[dec_id]
-    for span in ("parse.image", "re-emit.request", "container.read.request"):
-        assert [a.get("image") for n, a in zip(names, args)
-                if n == span] == ["0", "1"]
+    assert sorted(a.get("image") for n, a in entered
+                  if n == "parse.image") == ["0", "1"]
+    for span in ("re-emit.request", "container.read.request"):
+        assert [a.get("image") for n, a in entered if n == span] == \
+            ["0", "1"]
 
 
 def test_spans_without_the_profiler(monkeypatch):
@@ -140,7 +171,10 @@ def test_spans_without_the_profiler(monkeypatch):
     monkeypatch.setattr(vpx_decoder, "decode_lanes", spy)
     enc, dec = _round_trip()
     assert ENCODE_KEYS <= set(enc) and DECODE_KEYS <= set(dec)
-    assert 0 < enc["huffman_s"] <= enc["parse_s"]
+    # the native decodes lie in their images' spans, and those in the
+    # parse's wall on each of its threads
+    assert 0 < enc["huffman_s"] <= enc["parse_image_s"] \
+        <= enc["parse_s"] * enc["parse_workers"]
     assert 0 < dec["recode_native_s"] <= dec["recode_s"]
     assert enc["stage_bytes"] == sum(
         sum(p.size * 2 + p.shape[0] for p in api._parse(b)[2].planes)
