@@ -10,14 +10,17 @@ number compared is a count with the limit 0:
                  call makes) did not launch
   wrong_jpeg     decoded JPEGs that differ from the JPEG the benchmark made
                  (every one the window returned)
-  bad_container  .lep outputs that do not read as a version-1 container of
-                 their JPEG (size, header segments, trailer, one stream a
-                 segment; every one)
+  bad_container  .lep outputs that do not read as a container of their
+                 JPEG in the configuration's version and in the mode the
+                 JPEG calls for (size, header segments, trailer, one
+                 stream a segment; every one; container_problem)
   unstable_lep   .lep outputs of an image that differ from its first
   wrong_lep      .lep outputs that differ, byte for byte, from the plain
                  reference's .lep (reference/encode.py) with its sampled
                  lanes: every image is parsed and Huffman-decoded by the
-                 reference, which writes the container's header, and
+                 reference (its progressive scans too, where the
+                 configuration allows them), which writes the container's
+                 header, and
                  `reference_lanes` of its segments, drawn from the seed,
                  are coded by the reference; the output's other segments
                  are muxed in as they are.  `reference_images`, where the
@@ -43,24 +46,80 @@ from typing import Dict, List
 from .reference import encode as ref
 from .reference.container.format import read_container
 from .reference.container.mux import MuxReader
+from .spec import allow_progressive
 
 LIMITS = {"raised": 0, "host_route": 0, "plain": 0, "wrong_jpeg": 0,
           "bad_container": 0, "unstable_lep": 0, "wrong_lep": 0}
 
 
-def container_problem(lep: bytes, jpeg: bytes, num_segments: int) -> str:
-    """Why `lep` is not a version-1 mode-Z container of `jpeg` cut into at
-    most num_segments segments, or "" where it is."""
+def _segments(jpeg: bytes):
+    """(marker, bytes) of each marker segment of a JPEG after its SOI, in
+    order, up to its EOI or its end.  An SOS segment's bytes are its
+    header alone: the scan's entropy-coded bytes after it run to the next
+    0xFF that is followed by neither 0x00 (a stuffed byte) nor a restart
+    marker, and are cut out."""
+    pos, n = 2, len(jpeg)
+    while pos + 4 <= n and jpeg[pos] == 0xFF and jpeg[pos + 1] != 0xD9:
+        end = pos + 2 + int.from_bytes(jpeg[pos + 2:pos + 4], "big")
+        yield jpeg[pos + 1], jpeg[pos:end]
+        if jpeg[pos + 1] == 0xDA:
+            end = jpeg.find(b"\xff", end)
+            while 0 <= end < n - 1 and (jpeg[end + 1] == 0
+                                        or 0xD0 <= jpeg[end + 1] <= 0xD7):
+                end = jpeg.find(b"\xff", end + 2)
+            if end < 0:
+                return
+        pos = end
+
+
+def header_segments(jpeg: bytes) -> bytes:
+    """The marker segments of a JPEG after its SOI, in order, with each
+    scan's entropy-coded bytes cut out (_segments)."""
+    return b"".join(seg for _, seg in _segments(jpeg))
+
+
+def jpeg_mode(jpeg: bytes) -> str:
+    """The container mode that a JPEG's .lep has, by the rule of the
+    reference's decode_scans (is_baseline, as the port's): "Z" where the
+    frame is not progressive (SOF2) and every scan holds all the frame's
+    components (at most 4), "X" otherwise: a progressive file, or a
+    baseline one of more than one scan."""
+    frame, scans = None, []
+    for marker, seg in _segments(jpeg):
+        if 0xC0 <= marker <= 0xC2 and frame is None:
+            frame = seg
+        elif marker == 0xDA:
+            scans.append(seg[4])
+    if frame is None or frame[1] == 0xC2:
+        return "X"
+    return "Z" if all(ns == min(frame[9], 4) for ns in scans) else "X"
+
+
+def container_problem(lep: bytes, jpeg: bytes, num_segments: int,
+                      version: int = 1) -> str:
+    """Why `lep` is not a container of `jpeg` of this version, in the mode
+    the JPEG calls for (jpeg_mode), cut into at most num_segments
+    segments, or "" where it is.
+
+    The header segments: in mode Z (one baseline scan) the container's
+    are the JPEG's bytes from after its SOI, as a prefix; in mode X
+    (progressive or multi-scan) they are every marker segment of the JPEG
+    with each scan's entropy-coded bytes cut out (header_segments), as the
+    parse stores them (jpeg/parser.py keeps every segment up to the EOI,
+    the SOS of each scan and the tables between scans among them)."""
     try:
         hdr, mux = read_container(lep)
         streams = [b for b in MuxReader(mux).buffers if b]
     except Exception as e:
         return f"does not read: {type(e).__name__}: {e}"
-    if hdr.version != 1 or hdr.mode != ord("Z"):
-        return f"version {hdr.version} mode {hdr.mode}"
+    mode = jpeg_mode(jpeg)
+    if hdr.version != version or hdr.mode != ord(mode):
+        return (f"version {hdr.version} mode {chr(hdr.mode)!r}, not "
+                f"{version} {mode!r}")
     if hdr.original_size != len(jpeg):
         return f"original size {hdr.original_size}, not {len(jpeg)}"
-    if not jpeg[2:].startswith(hdr.hdrdata):
+    if not (jpeg[2:].startswith(hdr.hdrdata) if mode == "Z"
+            else hdr.hdrdata == header_segments(jpeg)):
         return "header segments differ from the JPEG's"
     if not jpeg.endswith(hdr.garbage):
         return "trailer differs from the JPEG's"
@@ -89,17 +148,19 @@ def pick_lanes(num_lanes: int, n: int, seed: int, image: int) -> list:
 
 def reference_lanes(jpegs: Dict[int, bytes], num_segments: int,
                     lanes: int, seed: int, masks=(ref.FULL_PRECISION,),
-                    workers: int = None) -> dict:
+                    workers: int = None,
+                    allow_progressive: bool = False) -> dict:
     """{image: (analysis, {(segment, mask): stream})} from the plain
     reference, on a pool of spawned processes: one job an image (parse,
-    Huffman decode, the container's header), then one a sampled segment
-    and mask."""
+    Huffman decode, the container's header; progressive scans with
+    allow_progressive), then one a sampled segment and mask."""
     workers = workers or os.cpu_count() or 1
     keys = sorted(jpegs)
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(min(workers, max(len(keys), 1) * max(lanes, 1))) as pool:
         analyses = pool.map(ref.analyse_job,
-                            [(jpegs[i], num_segments) for i in keys],
+                            [(jpegs[i], num_segments, allow_progressive)
+                             for i in keys],
                             chunksize=1)
         jobs = [(i, a, k, m) for i, a in zip(keys, analyses)
                 for k in pick_lanes(len(a["jobs"]), lanes, seed, i)
@@ -152,6 +213,7 @@ def judge(images: List[bytes], window: list, made: list, config: dict,
     window's inputs (`made`), whose outputs are judged alike."""
     requests = list(window) + list(made)
     num_segments = config["container"]["num_segments"]
+    version = config["container"]["version"]
     kernels = config["kernels"]
     counts = dict.fromkeys(LIMITS, 0)
     bad = set()          # (request index, output index) judged failed
@@ -200,12 +262,13 @@ def judge(images: List[bytes], window: list, made: list, config: dict,
     # .lep outputs: the container of each, each against the image's first
     for i, outs in leps.items():
         first = outs[0][2]
-        why = container_problem(first, images[i], num_segments)
+        why = container_problem(first, images[i], num_segments, version)
         for r, j, out in outs:
             if out is not first and out != first:
                 counts["unstable_lep"] += 1
                 bad.add((r, j))
-                why_here = container_problem(out, images[i], num_segments)
+                why_here = container_problem(out, images[i], num_segments,
+                                             version)
             else:
                 why_here = why
             if why_here:
@@ -223,7 +286,7 @@ def judge(images: List[bytes], window: list, made: list, config: dict,
             ref.FULL_PRECISION,)
         want = reference_lanes({i: images[i] for i in picked}, num_segments,
                                traffic["reference_lanes"], seed, masks,
-                               workers)
+                               workers, allow_progressive(config))
         for i in picked:
             analysis, coded = want[i]
             verdicts = {}        # an image's outputs are as a rule alike

@@ -1,4 +1,6 @@
-"""12 MP phone photos: make_photo([seed, k], width, height, quality)."""
+"""12 MP phone photos: make_photo([seed, k], width, height, quality),
+baseline, or progressive (libjpeg's simple progression, as PIL writes it)
+where the configuration's images have "progressive": true."""
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
@@ -12,4 +14,6 @@ def make(spec: dict, seed: int, n: int) -> list:
     with ThreadPoolExecutor(THREADS) as pool:
         return list(pool.map(
             lambda k: make_photo([seed, k], spec["width"], spec["height"],
-                                 spec["quality"]), range(n)))
+                                 spec["quality"],
+                                 spec.get("progressive", False)),
+            range(n)))

@@ -1,11 +1,13 @@
-"""The expected .lep of a baseline JPEG, from the plain codec beside it.
+"""The expected .lep of a JPEG, from the plain codec beside it.
 
 What host.compress does on its Python route (the C library absent), with
 the identity model as every segment's start (LEPTON_COMPRESSION_MODEL
-unset): parse, Huffman-decode the scan in Python, choose the segments as
+unset): parse, Huffman-decode the scans in Python, choose the segments as
 upstream does (jpgcoder.cc:3898-3960), code each segment with the Python
-block coder and the VPX bool writer, and write a version-1 container.  The
-work is split so that a pool can run it: analyse() once an image, then
+block coder and the VPX bool writer, and write a version-1 container: mode
+Z for a baseline file of one scan, and, with allow_progressive, mode X for
+a progressive or multi-scan one (which raises UnsupportedJpeg without it).
+The work is split so that a pool can run it: analyse() once an image, then
 encode_lane() once a segment, then assemble().
 
 prob_mask: the control.  Each branch probability is ANDed with it before
@@ -66,13 +68,14 @@ def _geometry(info, dec) -> tuple:
     return heights, sizes
 
 
-def analyse(jpeg: bytes, num_segments: int) -> dict:
+def analyse(jpeg: bytes, num_segments: int,
+            allow_progressive: bool = False) -> dict:
     """Parse and Huffman-decode one JPEG and plan its segments: the
     container header without its streams, the coefficient planes, and one
     (first luma row, end row, is last) job a segment."""
     parsed = parse_jpeg(jpeg)
     info = image_info_from_header(parsed.hdrdata)
-    dec = decode_scans(parsed, info)
+    dec = decode_scans(parsed, info, allow_progressive=allow_progressive)
     hs = dec.handoffs
     num_threads = choose_num_threads(
         len(hs), hs[-1].segment_size - hs[0].segment_size, num_segments, 1)
@@ -82,7 +85,7 @@ def analyse(jpeg: bytes, num_segments: int) -> dict:
             for k in range(len(splits))]
     hdr = LeptonHeader()
     hdr.version = 1
-    hdr.mode = ord("Z")
+    hdr.mode = ord("Z") if dec.is_baseline else ord("X")
     hdr.num_threads = num_threads
     hdr.original_size = parsed.jpgfilesize
     hdr.hdrdata = parsed.hdrdata
@@ -125,15 +128,17 @@ def assemble(analysis: dict, streams) -> bytes:
 
 
 def expected_lep(jpeg: bytes, num_segments: int,
-                 prob_mask: int = FULL_PRECISION) -> bytes:
+                 prob_mask: int = FULL_PRECISION,
+                 allow_progressive: bool = False) -> bytes:
     """The whole .lep of one JPEG, in this process."""
-    a = analyse(jpeg, num_segments)
+    a = analyse(jpeg, num_segments, allow_progressive)
     return assemble(a, [encode_lane(a, k, prob_mask)
                         for k in range(len(a["jobs"]))])
 
 
 def analyse_job(job) -> dict:
-    """analyse(jpeg, num_segments) for a process pool."""
+    """analyse(jpeg, num_segments, allow_progressive) for a process
+    pool."""
     return analyse(*job)
 
 

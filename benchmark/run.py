@@ -30,6 +30,8 @@ import os
 import sys
 import time
 
+from . import spec
+
 T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -57,7 +59,9 @@ def _environment() -> None:
 
 
 class Context:
-    """What a traffic driver is given."""
+    """What a traffic driver is given.  allow_progressive is the entry
+    points' argument of that name, the configuration's
+    (spec.allow_progressive)."""
 
     def __init__(self, api, device, cell, images, caller):
         self.api = api
@@ -68,6 +72,7 @@ class Context:
         self.caller = caller
         self.num_segments = cell.config["container"]["num_segments"]
         self.version = cell.config["container"]["version"]
+        self.allow_progressive = spec.allow_progressive(cell.config)
         self.setup_records = []
 
 
@@ -154,7 +159,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     """One run of a cell: the result line's object.  device="cpu" runs the
     program's plain versions (the tests' rehearsal); cell: a spec.Cell in
     place of BENCHMARK.json's (the tests' tiny copies)."""
-    from . import fixtures, spec
+    from . import fixtures
     from .calls import Caller
     from .check import judge
     t0 = time.perf_counter() if t0 is None else t0
@@ -239,7 +244,6 @@ def main(argv=None) -> int:
     ap.add_argument("--control", action="store_true")
     args = ap.parse_args(argv)
     _environment()
-    from . import spec
     cell = spec.cell(args.workload)
     import torch
     if not torch.cuda.is_available() or \

@@ -65,3 +65,14 @@ def metric_reader(name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def allow_progressive(config: dict) -> bool:
+    """The deployment's allow_progressive (upstream's -allowprogressive):
+    whether progressive and multi-scan JPEGs are taken, each into a mode-X
+    container, or refused.  The configuration's
+    container.allow_progressive; false where absent."""
+    value = config["container"].get("allow_progressive", False)
+    if not isinstance(value, bool):
+        raise ValueError(f"container.allow_progressive {value!r}: a bool")
+    return value

@@ -75,13 +75,11 @@ def _byte_of_jpeg(monkeypatch):
 
 
 @pytest.mark.parametrize("name,fault", [
-    ("phone12mp.bulk_encode", _half_of_encode),
-    ("phone12mp.bulk_encode", _byte_of_stream),
-    ("phone12mp.single", _byte_of_stream),
-    ("phone12mp.single", _byte_of_jpeg),
-    ("phone12mp.bulk_decode", _half_of_decode),
-    ("phone12mp.bulk_decode", _byte_of_jpeg),
-])
+    (f"{config}.{traffic}", fault) for config in ("phone12mp", "phoneprog12mp")
+    for traffic, fault in (
+        ("bulk_encode", _half_of_encode), ("bulk_encode", _byte_of_stream),
+        ("single", _byte_of_stream), ("single", _byte_of_jpeg),
+        ("bulk_decode", _half_of_decode), ("bulk_decode", _byte_of_jpeg))])
 def test_fault_is_not_correct(name, fault, monkeypatch):
     """Planted after set-up, so that the inputs the set-up makes are
     sound and the window's calls carry the fault."""

@@ -63,6 +63,108 @@ def test_reference_equals_jax_package(make):
         jpeg, max_threads=16)
 
 
+def _progressive(seed: int, cut: bool = False) -> bytes:
+    """A small progressive photo (libjpeg's simple progression, 10 scans);
+    cut: its last third left out, an early-EOF file."""
+    jpeg = fixtures.make_photo(seed, 256, 192, progressive=True)
+    return jpeg[:len(jpeg) * 2 // 3] if cut else jpeg
+
+
+PROGRESSIVE = [(31, False), (32, False), (2**31 + 33, False), (34, True)]
+
+
+@pytest.mark.parametrize("seed,cut", PROGRESSIVE)
+def test_progressive_decode_equals_port(seed, cut):
+    """The reference's scan decode of a progressive photo is the port's
+    Python loops' (decode_scans(use_native=False)): the planes, every
+    handoff crystallized in the DC scans, and the early-EOF fields."""
+    from lepton_tpu_torch.jpeg import decoder as port_decoder
+    from lepton_tpu_torch.jpeg import imageinfo as port_info
+    from lepton_tpu_torch.jpeg import parser as port_parser
+    from benchmark.reference.jpeg import decoder, imageinfo, parser
+    jpeg = _progressive(seed, cut)
+    parsed = parser.parse_jpeg(jpeg)
+    ours = decoder.decode_scans(
+        parsed, imageinfo.image_info_from_header(parsed.hdrdata),
+        allow_progressive=True)
+    parsed = port_parser.parse_jpeg(jpeg)
+    theirs = port_decoder.decode_scans(
+        parsed, port_info.image_info_from_header(parsed.hdrdata),
+        allow_progressive=True, use_native=False)
+    assert not ours.is_baseline and not theirs.is_baseline
+    assert ours.early_eof == theirs.early_eof == cut
+    assert len(ours.planes) == len(theirs.planes) == 3
+    for a, b in zip(ours.planes, theirs.planes):
+        assert np.array_equal(a, b)
+    assert len(ours.handoffs) > 2
+    assert [vars(h) for h in ours.handoffs] == [
+        vars(h) for h in theirs.handoffs]
+    for key in ("padbit", "max_cmp", "max_bpos", "max_sah", "max_dpos"):
+        assert getattr(ours, key) == getattr(theirs, key), key
+
+
+@pytest.mark.parametrize("seed,cut", PROGRESSIVE)
+def test_progressive_reference_equals_host_codec_and_jax_package(seed, cut):
+    """The reference's mode-X .lep of a progressive photo is the port's
+    host.compress and the JAX package's compress with allow_progressive,
+    byte for byte; without allow_progressive the reference refuses the
+    file, as they do."""
+    from lepton_tpu import api as jax_package
+    from lepton_tpu_torch import host
+    from benchmark.reference.jpeg.imageinfo import UnsupportedJpeg
+    jpeg = _progressive(seed, cut)
+    want = host.compress(jpeg, max_threads=16, allow_progressive=True)
+    assert ref.expected_lep(jpeg, 16, allow_progressive=True) == want
+    assert jax_package.compress(jpeg, max_threads=16,
+                                allow_progressive=True) == want
+    with pytest.raises(UnsupportedJpeg):
+        ref.analyse(jpeg, 16)
+
+
+@pytest.mark.parametrize("seed", [41, 42, 2**31 + 43])
+def test_container_problem_follows_the_jpeg(seed):
+    """A .lep must have the mode its JPEG calls for: a progressive photo's
+    and a multi-scan baseline photo's pass as mode X and are refused once
+    their header says mode Z; a baseline photo's passes as mode Z and is
+    refused once it says mode X.  A mode-X .lep with its header segments
+    altered, or held to another JPEG, is refused."""
+    from chip_smoke import multi_scan_jpeg
+    from lepton_tpu_torch import host
+    from benchmark.check import header_segments, jpeg_mode
+    from benchmark.reference.container.format import (read_container,
+                                                      write_container)
+
+    def with_mode(lep, mode):
+        hdr, mux = read_container(lep)
+        hdr.mode = ord(mode)
+        return write_container(hdr, mux)
+
+    prog = _progressive(seed)
+    base = fixtures.make_photo(seed, 256, 192)
+    multi = multi_scan_jpeg(base)
+    for jpeg, mode, wrong in ((prog, "X", "Z"), (base, "Z", "X"),
+                              (multi, "X", "Z")):
+        assert jpeg_mode(jpeg) == mode
+        lep = host.compress(jpeg, max_threads=16, allow_progressive=True)
+        assert read_container(lep)[0].mode == ord(mode)
+        assert container_problem(lep, jpeg, 16) == ""
+        assert container_problem(with_mode(lep, mode), jpeg, 16) == ""
+        assert container_problem(with_mode(lep, wrong), jpeg, 16) != ""
+        assert container_problem(lep, jpeg, 16, 2) != ""
+    # the stored header segments are the JPEG's with its 10 scans cut out
+    prog_lep = host.compress(prog, max_threads=16, allow_progressive=True)
+    hdr, mux = read_container(prog_lep)
+    assert hdr.hdrdata == header_segments(prog)
+    assert hdr.hdrdata.count(b"\xff\xda") == 10
+    assert not prog[2:].startswith(hdr.hdrdata)
+    assert base[2:].startswith(header_segments(base))
+    hdr.hdrdata = hdr.hdrdata[:-1] + bytes([hdr.hdrdata[-1] ^ 1])
+    assert container_problem(write_container(hdr, mux), prog,
+                             16) == "header segments differ from the JPEG's"
+    other = _progressive(seed + 1)
+    assert container_problem(prog_lep, other, 16) != ""
+
+
 def test_sampled_segments_judge_each_lane():
     """The .lep the check expects has the reference's header and sampled
     segments and the output's other segments: an output with one of the

@@ -19,7 +19,7 @@ def setup(ctx):
         "encode", "lep", range(len(ctx.images)),
         lambda st: ctx.api.batch_compress_device(
             ctx.images, ctx.num_segments, ctx.device, st,
-            version=ctx.version))
+            version=ctx.version, allow_progressive=ctx.allow_progressive))
     if made.error:
         raise RuntimeError(f"the set-up encode failed: {made.error}")
     leps = made.outputs

@@ -11,7 +11,8 @@ def images_needed(traffic: dict) -> int:
 
 def _encode(ctx, batch):
     return lambda st: ctx.api.batch_compress_device(
-        batch, ctx.num_segments, ctx.device, st, version=ctx.version)
+        batch, ctx.num_segments, ctx.device, st, version=ctx.version,
+        allow_progressive=ctx.allow_progressive)
 
 
 def setup(ctx):

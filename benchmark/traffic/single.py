@@ -16,7 +16,7 @@ def images_needed(traffic: dict) -> int:
 def _upload(ctx, k):
     return lambda st: [ctx.api.compress_device(
         ctx.images[k], ctx.num_segments, ctx.device, version=ctx.version,
-        stats=st)]
+        allow_progressive=ctx.allow_progressive, stats=st)]
 
 
 def _read(ctx, leps, k):
