@@ -370,8 +370,9 @@ def batch_decompress_device(leps, device=None, stats=None,
     and ans_decoder_ms (each launch; with a mesh, a list of each share's
     launch), merge_s (with a mesh), d2h_s and d2h_bytes (the planes' and
     flags' copy to the host), recode_s and recode_native_s (the native
-    re-emit calls in it), lanes, max_lane_blocks.  Each time in seconds
-    is a timing.span's; the ms are CUDA events (branch_probs.timed)."""
+    re-emit calls in it), recode_scan_bytes (mode X: the entropy-coded
+    bytes of the scans regenerated), lanes, max_lane_blocks.  Each time in
+    seconds is a timing.span's; the ms are CUDA events (branch_probs.timed)."""
     stats = {} if stats is None else stats
     dev = _device(device)
     with timing.call(stats, "decode"):

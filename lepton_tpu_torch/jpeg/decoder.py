@@ -22,7 +22,8 @@ from ..constants import ZIGZAG_TO_RASTER
 from ..util import timing
 from .bitio import BitReader
 from .huffman import devli
-from .imageinfo import ImageInfo, UnsupportedJpeg, scan_header_segments
+from .imageinfo import (ImageInfo, UnsupportedJpeg, scan_header_segments,
+                        scan_kind)
 from .parser import ParsedJpeg
 
 _ZIG2RAST = [int(v) for v in ZIGZAG_TO_RASTER]
@@ -89,7 +90,9 @@ def _native_available() -> bool:
 def decode_scans(parsed: ParsedJpeg, info: ImageInfo,
                  allow_progressive: bool = False,
                  use_native=None) -> DecodedScanData:
-    """Decode all scans from the stored header + huffdata."""
+    """Decode all scans from the stored header + huffdata.  Each native
+    progressive scan decode is a parse.huffman span labelled with the
+    scan's number and kind (imageinfo.scan_kind)."""
     native_finalized = False
     out = DecodedScanData()
     out.planes = [
@@ -142,7 +145,8 @@ def decode_scans(parsed: ParsedJpeg, info: ImageInfo,
             if use_native:
                 from .. import _native
                 state = np.asarray([mcu] + list(lastdc[:4]), dtype=np.int32)
-                with timing.span("parse.huffman", "huffman_s"):
+                with timing.span("parse.huffman", "huffman_s",
+                                 args=f"scan={scnc} kind={scan_kind(info)}"):
                     status, newpos, hrecs, padbit = \
                         _native.native_decode_progressive_scan(
                             info, parsed.huffdata, reader.pos, offsets,

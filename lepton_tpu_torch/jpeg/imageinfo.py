@@ -204,6 +204,18 @@ class ImageInfo:
             ci.nch = -(-self.imgwidth * ci.sfv // (8 * self.sfvm))
 
 
+def scan_kind(info: ImageInfo) -> str:
+    """The kind of info's current scan, as the per-scan spans name it:
+    "sequential" in a baseline frame; in a progressive one "dc_first" or
+    "dc_refine" (spectral start 0), "ac_first" or "ac_refine", a refine
+    scan being one with a successive-approximation high bit."""
+    if info.jpegtype == 1:
+        return "sequential"
+    sc = info.scan
+    return (("dc" if sc.cs_from == 0 else "ac")
+            + ("_refine" if sc.cs_sah else "_first"))
+
+
 def scan_header_segments(hdrdata: bytes):
     """Yield (type, segment_bytes) for each segment in stored header data."""
     hpos = 0

@@ -21,7 +21,7 @@ from ..constants import ZIGZAG_TO_RASTER
 from ..util import timing
 from .bitio import BitWriter
 from .huffman import envli
-from .imageinfo import ImageInfo, scan_header_segments
+from .imageinfo import ImageInfo, scan_header_segments, scan_kind
 from .recoder import BoundedWriter, RecodeError
 from .decoder import _next_mcupos, _next_mcuposn
 
@@ -177,6 +177,12 @@ def regenerate_scans(hdrdata: bytes, planes, info: ImageInfo, padbit: int,
     progressive+RST file); a clean exact-prefix decode is the only
     useful behavior.
 
+    Each scan is a span labelled with its number and kind
+    (imageinfo.scan_kind): re-emit.native (adding to recode_native_s) or,
+    in the Python loop, re-emit.python.  The open call's stats count the
+    scans' entropy-coded bytes, before the merge stuffs them, in
+    recode_scan_bytes.
+
     Returns (huffdata bytes, scnp list, rstp list, scnc).
     """
     huffw = BitWriter()
@@ -219,6 +225,7 @@ def regenerate_scans(hdrdata: bytes, planes, info: ImageInfo, padbit: int,
         if stype != 0xDA:
             break
         sc = info.scan
+        args = f"scan={scnc} kind={scan_kind(info)}"
         while len(scnp) < scnc + 2:
             scnp.append(0)
         scnp[scnc] = pos()
@@ -229,7 +236,8 @@ def regenerate_scans(hdrdata: bytes, planes, info: ImageInfo, padbit: int,
         if use_native:
             from .. import _native
             try:
-                with timing.span("re-emit.native", "recode_native_s"):
+                with timing.span("re-emit.native", "recode_native_s",
+                                 args=args):
                     scan_bytes, rstp_new = _native.native_recode_any_scan(
                         info, planes_c, info.jpegtype, padbit, pos())
             except RuntimeError:
@@ -245,8 +253,12 @@ def regenerate_scans(hdrdata: bytes, planes, info: ImageInfo, padbit: int,
                 huffw.nbytes += len(scan_bytes)
                 rstp.extend(rstp_new)
                 scnc += 1
+                timing.add("recode_scan_bytes", len(scan_bytes))
                 continue
 
+        # the Python loop's time for this scan, and its bytes
+        start = pos()
+        python_span = timing.span("re-emit.python", args=args).__enter__()
         try:
             cmp = sc.cs_cmp[0]
             csc = 0
@@ -370,6 +382,9 @@ def regenerate_scans(hdrdata: bytes, planes, info: ImageInfo, padbit: int,
             huffw.pad(huffw.fillbit)
             scnc += 1
             break
+        finally:
+            python_span.__exit__(None, None, None)
+            timing.add("recode_scan_bytes", pos() - start)
 
     huffdata = bytes(huffw.chunks)
     if scnc >= len(scnp):

@@ -191,22 +191,29 @@ class span:
     write), marks NAME_BEGIN/NAME_END and the reference stage's
     STAGE_STARTED/STAGE_FINISHED under -timing=, and while torch.profiler
     records opens record_function("lepton:" + name) with the args
-    "call=<id>" and "image=<i>"."""
+    "call=<id>" and "image=<i>".  Under -timing= a span with `args`
+    ("k=v ...", a scan's number and kind, say) marks "NAME ARGS", so that
+    its summary line tells such spans apart; the profiler's range keeps
+    NAME alone (it drops a range's args string)."""
 
-    __slots__ = ("name", "key", "stage", "image", "stats", "_rf", "_t")
+    __slots__ = ("name", "key", "stage", "image", "stats", "args", "_rf",
+                 "_t")
 
     def __init__(self, name: str, key: Optional[str] = None,
                  stage: Optional[str] = None, image: Optional[int] = None,
-                 stats: Optional[dict] = None):
+                 stats: Optional[dict] = None, args: Optional[str] = None):
         self.name, self.key, self.stage = name, key, stage
-        self.image, self.stats, self._rf = image, stats, None
+        self.image, self.stats, self.args, self._rf = image, stats, args, None
+
+    def _label(self) -> str:
+        return f"{self.name} {self.args}" if self.args else self.name
 
     def __enter__(self):
         c = _call.get()
         if self.stats is None and c is not None:
             self.stats = c[0]
         if _enabled:
-            mark(self.name + "_BEGIN")
+            mark(self._label() + "_BEGIN")
             if self.stage:
                 mark(self.stage + "_STARTED")
         prof = _recording()
@@ -228,7 +235,7 @@ class span:
         if _enabled:
             if self.stage:
                 mark(self.stage + "_FINISHED")
-            mark(self.name + "_END")
+            mark(self._label() + "_END")
         if self.key is not None and self.stats is not None:
             self.stats[self.key] = self.stats.get(self.key, 0.0) + dt
         return False
