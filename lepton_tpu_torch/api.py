@@ -21,7 +21,8 @@ v2, rANS lanes for v3) one launch of the token decoder for every segment of
 every request of that coder, whatever its mode (kernels/vpx_decoder.py),
 and one copy of the planes to the host, then the Huffman re-emit: the
 baseline scan by segments (jpeg/recoder.py) for mode Z, every scan
-regenerated from the whole planes (jpeg/recode_progressive.py) for mode X.
+regenerated from the whole planes (jpeg/recode_progressive.py) for mode X,
+the mode-X requests of a batch at once on the host pool.
 The output is the original JPEG, byte for byte.  A container the device
 path does not cover (mode Y) raises LeptonError, or, with per_request,
 comes back as its LeptonError in its own slot; there is no hidden host
@@ -207,13 +208,24 @@ def _parse_images(jpeg_blobs, num_segments, jailed_parse,
         done = [one(i) for i in range(n)]
     else:
         done = []
-        for got, err, part in _parallel_map(timing.in_call(one), range(n)):
-            for key, value in part.items():
-                timing.add(key, value)
+        for got, err in _pool_jobs(one, range(n)):
             if err is not None:
                 raise err
             done.append(got)
     return [m for m, _ in done], [d for _, d in done]
+
+
+def _pool_jobs(fn, jobs) -> list:
+    """[(fn(job) or None, the exception it raised or None)] of jobs run at
+    once on the host pool (host._parallel_map) as parts of the call open
+    on this thread: each job's stats are added to the call's, in job
+    order (timing.in_call)."""
+    done = []
+    for got, err, part in _parallel_map(timing.in_call(fn), jobs):
+        for key, value in part.items():
+            timing.add(key, value)
+        done.append((got, err))
+    return done
 
 
 def compress_device(jpeg_data: bytes, num_segments: int = 16,
@@ -370,8 +382,10 @@ def batch_decompress_device(leps, device=None, stats=None,
     and ans_decoder_ms (each launch; with a mesh, a list of each share's
     launch), merge_s (with a mesh), d2h_s and d2h_bytes (the planes' and
     flags' copy to the host), recode_s and recode_native_s (the native
-    re-emit calls in it), recode_scan_bytes (mode X: the entropy-coded
-    bytes of the scans regenerated), lanes, max_lane_blocks.  Each time in
+    re-emit calls in it; mode X's summed over the pool's threads),
+    recode_scan_bytes and reemit_workers (mode X only: the entropy-coded
+    bytes of the scans regenerated; the threads _reemit_modex ran the
+    requests on), lanes, max_lane_blocks.  Each time in
     seconds is a timing.span's; the ms are CUDA events (branch_probs.timed)."""
     stats = {} if stats is None else stats
     dev = _device(device)
@@ -437,21 +451,57 @@ def _decompress_batch(leps, dev, stats, per_request, mesh, even_shares):
                                                             err != 0)):
             planes[i] = res
     with timing.span("re-emit", "recode_s", stage="TS_JPEG_RECODE"):
+        pooled = _reemit_modex(reqs, planes)
         for i, req in enumerate(reqs):
             if req is None:
                 continue
-            (p, bad), (_, hdr, handoffs) = planes[i], req
             try:
-                if bad.any():
-                    raise LeptonError(f"request {i}: lepton stream "
-                                      "inconsistent (device decode)")
-                with timing.span("re-emit.request", image=i):
-                    out[i] = _reemit(hdr, handoffs, p)
+                if i in pooled:
+                    out[i], err = pooled[i]
+                    if err is not None:
+                        raise err
+                else:
+                    out[i] = _reemit_request(i, req, planes[i])
             except Exception as e:
                 if not per_request:
                     raise request_error(i, e)
                 out[i] = _request_error(i, e)
     return out
+
+
+def _reemit_request(i, req, decoded):
+    """Request i's JPEG from its decoded planes (span re-emit.request)."""
+    (p, bad), (_, hdr, handoffs) = decoded, req
+    if bad.any():
+        raise LeptonError(f"request {i}: lepton stream inconsistent "
+                          "(device decode)")
+    with timing.span("re-emit.request", image=i):
+        return _reemit(hdr, handoffs, p)
+
+
+def _reemit_modex(reqs, planes) -> dict:
+    """{i: (JPEG bytes or None, the exception or None)} of the batch's
+    mode-X requests whose planes are not flagged, re-emitted at once on the
+    host pool (host._parallel_map; the native scan coder drops the GIL), a
+    request a job.  A request's scans stay in order on its job's thread.
+    Empty where the pool has one worker (one such request, one CPU): the
+    caller then re-emits them in order on its own thread, as it does every
+    mode-Z request, whose segments take the pool themselves (a job that
+    waited on its own pool could leave every thread waiting).  Stats:
+    reemit_workers, the threads the mode-X requests ran on, where there is
+    one; each job's keys (recode_native_s, recode_scan_bytes) summed
+    (_pool_jobs)."""
+    xs = [i for i, req in enumerate(reqs)
+          if req is not None and req[1].mode == ord("X")
+          and not planes[i][1].any()]
+    if not xs:
+        return {}
+    workers = _workers(len(xs))
+    timing.add("reemit_workers", workers)
+    if workers == 1:
+        return {}
+    return dict(zip(xs, _pool_jobs(
+        lambda i: _reemit_request(i, reqs[i], planes[i]), xs)))
 
 
 def decompress_device(lep_data: bytes, device=None, mesh=None,
