@@ -487,6 +487,14 @@ def timed_cuda(fn, *args):
     return r, start.elapsed_time(end)
 
 
+def timed_part(stats: dict, fn, *args):
+    """timed_cuda(fn, *args), the stages' stats of fn in `stats` (a part
+    of a call, lepton_tpu_torch/util/timing.py)."""
+    from lepton_tpu_torch.util import timing
+    with timing.part(stats):
+        return timed_cuda(fn, *args)
+
+
 def _byte_err(a: list, b: list) -> int:
     """Largest absolute difference between two lists of byte strings."""
     return max((int(np.abs(np.frombuffer(x, np.uint8).astype(np.int16)
@@ -1011,6 +1019,7 @@ def phase_symbolize(dev, smi: str, blobs, descs, leps, launches,
     from lepton_tpu_torch import api
     from lepton_tpu_torch.kernels import batch_encode
     from lepton_tpu_torch.kernels import symbolize as S
+    from lepton_tpu_torch.util import timing
     t_phase = time.perf_counter()
     prof, wall, peak = main
     # (a) the 12 planes of the main batch, kernel against plain (the plain
@@ -1093,7 +1102,8 @@ def phase_symbolize(dev, smi: str, blobs, descs, leps, launches,
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(dev)
                 st = {}
-                batch_encode.symbolize_images(descs, dev, st)
+                with timing.part(st):
+                    batch_encode.symbolize_images(descs, dev)
                 sym_peak = torch.cuda.max_memory_allocated(dev)
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(dev)
@@ -1257,11 +1267,11 @@ def phase_mode_x(dev, base: dict) -> dict:
         again = {}
         if version == 3:
             nsyms = (idx != vpx_coder.PAD).sum(1).to(torch.int32)
-            _, again_ms = timed_cuda(ans_coder.encode_streams_ans, idx, bit,
-                                     nsyms, None, again)
+            _, again_ms = timed_part(again, ans_coder.encode_streams_ans,
+                                     idx, bit, nsyms, None)
         else:
-            _, again_ms = timed_cuda(vpx_coder.encode_streams, idx, bit,
-                                     None, again)
+            _, again_ms = timed_part(again, vpx_coder.encode_streams, idx,
+                                     bit, None)
         del idx, bit
         torch.cuda.empty_cache()
         reset_launches()
@@ -2648,11 +2658,11 @@ def main() -> None:
     lane_symbols = (idx_f != vpx_coder.PAD).sum(1).cpu()
     k = int(lane_symbols.argmax())
     again, alone = {}, {}
-    _, again_ms = timed_cuda(vpx_coder.encode_streams, idx_f, bit_f, None,
-                             again)
-    _, alone_ms = timed_cuda(vpx_coder.encode_streams,
+    _, again_ms = timed_part(again, vpx_coder.encode_streams, idx_f, bit_f,
+                             None)
+    _, alone_ms = timed_part(alone, vpx_coder.encode_streams,
                              idx_f[k:k + 1].contiguous(),
-                             bit_f[k:k + 1].contiguous(), None, alone)
+                             bit_f[k:k + 1].contiguous(), None)
     log(f"[4] coder again: all {prof['lanes']} lanes {again_ms:.2f} ms "
         f"{stage_split(again)}; longest lane only {alone_ms:.2f} ms "
         f"{stage_split(alone)}, "
@@ -2929,12 +2939,12 @@ def main() -> None:
     ns3 = torch.as_tensor(lane_syms3, dtype=torch.int32, device=dev)
     k3 = int(lane_syms3.argmax())
     again3, alone3 = {}, {}
-    _, aagain_ms = timed_cuda(ans_coder.encode_streams_ans, idx3, bit3, ns3,
-                              None, again3)
-    _, aalone_ms = timed_cuda(ans_coder.encode_streams_ans,
+    _, aagain_ms = timed_part(again3, ans_coder.encode_streams_ans, idx3,
+                              bit3, ns3, None)
+    _, aalone_ms = timed_part(alone3, ans_coder.encode_streams_ans,
                               idx3[k3:k3 + 1].contiguous(),
                               bit3[k3:k3 + 1].contiguous(), ns3[k3:k3 + 1],
-                              None, alone3)
+                              None)
     log(f"[9] ANS coder again: all {len(lane_syms3)} lanes {aagain_ms:.2f} "
         f"ms {stage_split(again3)}; longest lane ({k3}, {lane_syms3[k3]} "
         f"symbols) only {aalone_ms:.2f} ms {stage_split(alone3)}, "

@@ -43,26 +43,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _native
+from . import _native, host
 from . import constants as C
 from .container.format import (ContainerError, LeptonHeader, read_container,
                                write_container)
 from .container.handoff import choose_num_threads, select_splits
 from .container.mux import MuxReader, mux_streams
-# the host codec, re-exported beside the device entry points
-from .host import (LeptonError, _container_end,  # noqa: F401
-                   _handoffs, _model_template_packed, _native_image,
-                   _parallel_map, _parse, _workers,
-                   _parse_jpeg_jailed, _reemit, _truncation_geometry,
-                   compress, compress_any, decompress, decompress_all,
-                   decompress_streaming, generic_compress, pack_model,
-                   request_error, ujg_compress, ujg_decompress)
+from .errors import REQUEST_ERRORS, LeptonError, request_error  # noqa: F401
+# the host codec, re-exported beside the device entry points; _parse and
+# _reemit are looked up here at call time (benchmark/spans.json wraps them)
+from .host import (_parse, _reemit, compress, compress_any,  # noqa: F401
+                   decompress, decompress_all, decompress_streaming,
+                   generic_compress, pack_model, ujg_compress,
+                   ujg_decompress)
 from .jpeg.imageinfo import UnsupportedJpeg, image_info_from_header  # noqa: F401
 from .kernels import batch_encode, vpx_decoder
-from .kernels.branch_probs import timed
 from .model.context import ColorTables
 from .model.tables import arena_from_template
-from .util import timing
+from .util import pool, timing
 
 
 def _device(device) -> torch.device:
@@ -84,7 +82,7 @@ def _plan(dec, num_segments: int):
 
 def _describe(info, dec, splits) -> dict:
     """The encode_images_device description of one image."""
-    mh, cs = _truncation_geometry(info, dec)
+    mh, cs = host._truncation_geometry(info, dec)
     colors = [ColorTables(info.qtables[info.cmpnfo[c].qtable_index])
               for c in range(info.cmpc)]
     return dict(planes=list(dec.planes), color_tables=colors, mcuv=info.mcuv,
@@ -163,8 +161,8 @@ def batch_compress_device(jpeg_blobs, num_segments: int = 16,
                                          jailed_parse, allow_progressive,
                                          allow_four_colors)
         all_streams = batch_encode.encode_images_device(
-            descs, version, template=_model_template_packed(), device=dev,
-            stats=stats)
+            descs, version, template=host._model_template_packed(),
+            device=dev)
         with timing.span("container", "mux_s", stage="TS_STREAM_MULTIPLEX"):
             return [_container(parsed, dec, splits, num_threads, streams,
                                version)
@@ -176,15 +174,14 @@ def _parse_images(jpeg_blobs, num_segments, jailed_parse,
                   allow_progressive, allow_four_colors):
     """(metas, descs) of a batch: each JPEG parsed (span parse.image) and
     its segments planned (parse.plan).  The images parse at once on the
-    host pool (host._parallel_map; the native scan decodes drop the GIL),
-    an image a job, and come back in their order; the request error of the
-    first image that fails is raised.  They parse one after another on
-    this thread where the pool has one worker (one image, one CPU), and
-    with jailed_parse: each forks a child, and a fork while other threads
-    run can leave the child a lock that no thread of it will release.
-    Stats: parse_workers, the threads the parse ran on; parse_image_s, the
+    host pool (util/pool.py; the native scan decodes drop the GIL), an
+    image a job, and come back in their order; the request error of the
+    first image that fails is raised.  With jailed_parse the pool has one
+    worker: each image forks a child, and a fork while other threads run
+    can leave the child a lock that no thread of it will release.  Stats:
+    parse_workers, the threads the parse ran on; parse_image_s, the
     parse.image spans' seconds summed over images."""
-    parse = _parse_jpeg_jailed if jailed_parse else _parse
+    parse = host._parse_jpeg_jailed if jailed_parse else _parse
 
     def one(i):
         # what a request's bytes make fail here raises one of
@@ -202,30 +199,10 @@ def _parse_images(jpeg_blobs, num_segments, jailed_parse,
         return (parsed, dec, splits, num_threads), desc
 
     n = len(jpeg_blobs)
-    workers = 1 if jailed_parse else _workers(n)
+    workers = 1 if jailed_parse else pool._workers(n)
     timing.add("parse_workers", workers)
-    if workers == 1:
-        done = [one(i) for i in range(n)]
-    else:
-        done = []
-        for got, err in _pool_jobs(one, range(n)):
-            if err is not None:
-                raise err
-            done.append(got)
+    done = pool.results(pool.map(one, range(n), workers))
     return [m for m, _ in done], [d for _, d in done]
-
-
-def _pool_jobs(fn, jobs) -> list:
-    """[(fn(job) or None, the exception it raised or None)] of jobs run at
-    once on the host pool (host._parallel_map) as parts of the call open
-    on this thread: each job's stats are added to the call's, in job
-    order (timing.in_call)."""
-    done = []
-    for got, err, part in _parallel_map(timing.in_call(fn), jobs):
-        for key, value in part.items():
-            timing.add(key, value)
-        done.append((got, err))
-    return done
 
 
 def compress_device(jpeg_data: bytes, num_segments: int = 16,
@@ -260,7 +237,7 @@ def compress_device(jpeg_data: bytes, num_segments: int = 16,
     stats = {} if stats is None else stats
     dev = _device(device)
     with timing.call(stats, "encode"):
-        parse = _parse_jpeg_jailed if jailed_parse else _parse
+        parse = host._parse_jpeg_jailed if jailed_parse else _parse
         with timing.span("parse", "parse_s", stage="TS_JPEG_DECODE"), \
                 timing.span("parse.image", image=0):
             try:
@@ -273,18 +250,18 @@ def compress_device(jpeg_data: bytes, num_segments: int = 16,
         if not _native.available():
             raise LeptonError("native symbolizer unavailable")
         with timing.span("symbolize", "symbolize_s"):
-            mh, cs = _truncation_geometry(info, dec)
-            img = _native_image(info, dec.planes, mh, cs)
+            mh, cs = host._truncation_geometry(info, dec)
+            img = host._native_image(info, dec.planes, mh, cs)
             bounds = [th.luma_y_start for th in splits] + [info.cmpnfo[0].bcv]
             # a thread a segment, as the host codec codes them: the C calls
             # drop the GIL
-            segs = _parallel_map(
+            segs = pool.results(pool.map(
                 lambda i: _native.native_symbolize_segment(
                     img, bounds[i], bounds[i + 1], i == len(splits) - 1),
-                range(len(splits)))
-        idx, bit = batch_encode.symbol_lanes(segs, version != 3, dev, stats)
+                range(len(splits))))
+        idx, bit = batch_encode.symbol_lanes(segs, version != 3, dev)
         streams = batch_encode.code_lanes(idx, bit, version,
-                                          _model_template_packed(), stats)
+                                          host._model_template_packed())
         with timing.span("container", "mux_s", stage="TS_STREAM_MULTIPLEX"):
             return _container(parsed, dec, splits, num_threads, streams,
                               version)
@@ -312,9 +289,9 @@ def _decode_request(lep_data: bytes, i: int = 0):
     if hdr.mode not in (ord("Z"), ord("X")):
         raise LeptonError(f"request {i}: unknown mode {hdr.mode}")
     info = image_info_from_header(hdr.hdrdata, allow_34=True)
-    max_heights, comp_sizes = _truncation_geometry(info, hdr)
-    handoffs, mux_region = _handoffs(hdr, mux_region, info,
-                                     f"request {i}: ")
+    max_heights, comp_sizes = host._truncation_geometry(info, hdr)
+    handoffs, mux_region = host._handoffs(hdr, mux_region, info,
+                                          f"request {i}: ")
     demux = MuxReader(mux_region)
     req = dict(streams=[bytes(demux.buffers[k]) for k in range(len(handoffs))],
                plane_shapes=[(info.cmpnfo[c].bcv, info.cmpnfo[c].bch)
@@ -335,11 +312,13 @@ def _request_error(i: int, e: Exception) -> LeptonError:
 
 def _timed_decode(inputs: dict, template, dev: torch.device):
     """(coef, err, ms) of one decode_lanes launch; ms by CUDA events on the
-    card, the host clock on the CPU (branch_probs.timed)."""
+    card, the host clock on the CPU (timing.timed, in a part of its
+    own)."""
     got = {}
-    coef, err = timed(lambda: vpx_decoder.decode_lanes(**inputs,
-                                                       template=template),
-                      dev, got, "ms", host=True)
+    with timing.part(got):
+        coef, err = timing.timed(
+            lambda: vpx_decoder.decode_lanes(**inputs, template=template),
+            dev, "ms", host=True)
     return coef, err, got["ms"]
 
 
@@ -386,122 +365,112 @@ def batch_decompress_device(leps, device=None, stats=None,
     recode_scan_bytes and reemit_workers (mode X only: the entropy-coded
     bytes of the scans regenerated; the threads _reemit_modex ran the
     requests on), lanes, max_lane_blocks.  Each time in
-    seconds is a timing.span's; the ms are CUDA events (branch_probs.timed)."""
+    seconds is a timing.span's; the ms are CUDA events (timing.timed)."""
     stats = {} if stats is None else stats
     dev = _device(device)
     with timing.call(stats, "decode"):
-        return _decompress_batch(leps, dev, stats, per_request, mesh,
-                                 even_shares)
-
-
-def _decompress_batch(leps, dev, stats, per_request, mesh, even_shares):
-    out = [None] * len(leps)
-    reqs = [None] * len(leps)
-    groups = {}
-    with timing.span("container.read", "read_s"):
-        for i, lep in enumerate(leps):
-            try:
-                with timing.span("container.read.request", image=i):
-                    reqs[i] = _decode_request(lep, i)
-            except Exception as e:
-                if not per_request:
-                    raise request_error(i, e)
-                out[i] = _request_error(i, e)
-                continue
-            coder = "ans" if reqs[i][1].version == 3 else "vpx"
-            groups.setdefault(coder, []).append(i)
-    tpl = _model_template_packed()
-    if tpl is not None:
-        tpl = arena_from_template(tpl)
-    for key in ("plan_s", "decoder_ms", "d2h_s", "d2h_bytes", "lanes",
-                "max_lane_blocks"):
-        stats[key] = 0
-    if mesh is not None:
-        stats["merge_s"] = 0
-    planes = [None] * len(reqs)
-    for coder, members in groups.items():
-        with timing.span("reader.plan", "plan_s"):
-            plan = vpx_decoder.plan_decode([reqs[i][0] for i in members],
-                                           coder)
-            if mesh is None:
-                inputs = plan.to(dev)
-                batch_encode._sync(dev)
-        stats["lanes"] += len(plan.lane_request)
-        stats["max_lane_blocks"] = max(stats["max_lane_blocks"], int(
-            np.bincount(np.repeat(np.arange(len(plan.lanes)),
-                                  plan.lanes[:, 1]),
-                        weights=plan.rows[:, 2], minlength=1).max()))
-        with timing.span("reader", stage="TS_ARITH"):
-            if mesh is None:
-                coef, err, ms = _timed_decode(
-                    inputs, None if tpl is None else tpl.to(dev), dev)
-                del inputs
-                stats["decoder_ms"] += ms
-            else:
-                from .parallel.mesh import decode_shares
-                coef, err, ms, merge_s = decode_shares(plan, mesh, tpl, dev,
-                                                       even_shares)
-                stats["decoder_ms"] += max(ms)
-                stats["merge_s"] += merge_s
-        stats[f"{coder}_decoder_ms"] = ms
-        with timing.span("reader.d2h", "d2h_s"):
-            coef, err = coef.cpu().numpy(), err.cpu().numpy()
-        stats["d2h_bytes"] += coef.nbytes + err.nbytes
-        for i, res in zip(members, vpx_decoder.split_planes(plan, coef,
-                                                            err != 0)):
-            planes[i] = res
-    with timing.span("re-emit", "recode_s", stage="TS_JPEG_RECODE"):
-        pooled = _reemit_modex(reqs, planes)
-        for i, req in enumerate(reqs):
-            if req is None:
-                continue
-            try:
-                if i in pooled:
-                    out[i], err = pooled[i]
-                    if err is not None:
-                        raise err
+        out = [None] * len(leps)
+        reqs = [None] * len(leps)
+        groups = {}
+        with timing.span("container.read", "read_s"):
+            for i, lep in enumerate(leps):
+                try:
+                    with timing.span("container.read.request", image=i):
+                        reqs[i] = _decode_request(lep, i)
+                except Exception as e:
+                    if not per_request:
+                        raise request_error(i, e)
+                    out[i] = _request_error(i, e)
+                    continue
+                coder = "ans" if reqs[i][1].version == 3 else "vpx"
+                groups.setdefault(coder, []).append(i)
+        tpl = host._model_template_packed()
+        if tpl is not None:
+            tpl = arena_from_template(tpl)
+        for key in ("plan_s", "decoder_ms", "d2h_s", "d2h_bytes", "lanes",
+                    "max_lane_blocks"):
+            stats[key] = 0
+        if mesh is not None:
+            stats["merge_s"] = 0
+        planes = [None] * len(reqs)
+        for coder, members in groups.items():
+            with timing.span("reader.plan", "plan_s"):
+                plan = vpx_decoder.plan_decode([reqs[i][0] for i in members],
+                                               coder)
+                if mesh is None:
+                    inputs = plan.to(dev)
+                    batch_encode._sync(dev)
+            stats["lanes"] += len(plan.lane_request)
+            stats["max_lane_blocks"] = max(stats["max_lane_blocks"], int(
+                np.bincount(np.repeat(np.arange(len(plan.lanes)),
+                                      plan.lanes[:, 1]),
+                            weights=plan.rows[:, 2], minlength=1).max()))
+            with timing.span("reader", stage="TS_ARITH"):
+                if mesh is None:
+                    coef, err, ms = _timed_decode(
+                        inputs, None if tpl is None else tpl.to(dev), dev)
+                    del inputs
+                    stats["decoder_ms"] += ms
                 else:
-                    out[i] = _reemit_request(i, req, planes[i])
-            except Exception as e:
-                if not per_request:
-                    raise request_error(i, e)
-                out[i] = _request_error(i, e)
-    return out
+                    from .parallel.mesh import decode_shares
+                    coef, err, ms = decode_shares(plan, mesh, tpl, dev,
+                                                  even_shares)
+                    stats["decoder_ms"] += max(ms)
+            stats[f"{coder}_decoder_ms"] = ms
+            with timing.span("reader.d2h", "d2h_s"):
+                coef, err = coef.cpu().numpy(), err.cpu().numpy()
+            stats["d2h_bytes"] += coef.nbytes + err.nbytes
+            for i, res in zip(members, vpx_decoder.split_planes(plan, coef,
+                                                                err != 0)):
+                planes[i] = res
+        with timing.span("re-emit", "recode_s", stage="TS_JPEG_RECODE"):
+            pooled = _reemit_modex(reqs, planes, per_request)
+            for i, req in enumerate(reqs):
+                if req is None:
+                    continue
+                out[i], err = pooled[i] if i in pooled else (
+                    _reemit_request(i, req, planes[i], per_request), None)
+                if err is not None:
+                    raise err
+        return out
 
 
-def _reemit_request(i, req, decoded):
-    """Request i's JPEG from its decoded planes (span re-emit.request)."""
+def _reemit_request(i, req, decoded, per_request: bool = False):
+    """Request i's JPEG from its decoded planes (span re-emit.request).  A
+    failure raises its request error, or with per_request comes back as
+    its LeptonError."""
     (p, bad), (_, hdr, handoffs) = decoded, req
-    if bad.any():
-        raise LeptonError(f"request {i}: lepton stream inconsistent "
-                          "(device decode)")
-    with timing.span("re-emit.request", image=i):
-        return _reemit(hdr, handoffs, p)
+    try:
+        if bad.any():
+            raise LeptonError(f"request {i}: lepton stream inconsistent "
+                              "(device decode)")
+        with timing.span("re-emit.request", image=i):
+            return _reemit(hdr, handoffs, p)
+    except Exception as e:
+        if not per_request:
+            raise request_error(i, e)
+        return _request_error(i, e)
 
 
-def _reemit_modex(reqs, planes) -> dict:
-    """{i: (JPEG bytes or None, the exception or None)} of the batch's
-    mode-X requests whose planes are not flagged, re-emitted at once on the
-    host pool (host._parallel_map; the native scan coder drops the GIL), a
-    request a job.  A request's scans stay in order on its job's thread.
-    Empty where the pool has one worker (one such request, one CPU): the
-    caller then re-emits them in order on its own thread, as it does every
-    mode-Z request, whose segments take the pool themselves (a job that
-    waited on its own pool could leave every thread waiting).  Stats:
-    reemit_workers, the threads the mode-X requests ran on, where there is
-    one; each job's keys (recode_native_s, recode_scan_bytes) summed
-    (_pool_jobs)."""
+def _reemit_modex(reqs, planes, per_request: bool = False) -> dict:
+    """{i: (_reemit_request's result or None, the error it raised or None)}
+    of the batch's mode-X requests whose planes are not flagged, re-emitted
+    at once on the host pool (util/pool.py; the native scan coder drops
+    the GIL), a request a job, its scans in order on its job's thread; in
+    turn on this thread where the pool has one worker.  Mode-Z requests
+    stay with the caller: their segments take the pool themselves.  Stats:
+    reemit_workers, where there is such a request; each job's keys
+    (recode_native_s, recode_scan_bytes) summed."""
     xs = [i for i, req in enumerate(reqs)
           if req is not None and req[1].mode == ord("X")
           and not planes[i][1].any()]
     if not xs:
         return {}
-    workers = _workers(len(xs))
+    workers = pool._workers(len(xs))
     timing.add("reemit_workers", workers)
-    if workers == 1:
-        return {}
-    return dict(zip(xs, _pool_jobs(
-        lambda i: _reemit_request(i, reqs[i], planes[i]), xs)))
+    return dict(zip(xs, pool.map(
+        lambda i: _reemit_request(i, reqs[i], planes[i], per_request), xs,
+        workers)))
 
 
 def decompress_device(lep_data: bytes, device=None, mesh=None,

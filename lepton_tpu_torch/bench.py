@@ -82,6 +82,7 @@ import time
 import numpy as np
 
 from . import host
+from .util import timing
 
 SEED = 20240601                 # the main batch's photos
 PHOTOS, PHOTO_SIZE = 4, (4032, 3024)
@@ -198,7 +199,9 @@ def _launches() -> dict:
 class Runs:
     """One section's cold run and `runs` warm runs of fn(stats) -> out,
     each checked by check(out) and walled between two synchronize() calls,
-    with its stats dict and peak device memory."""
+    with its stats dict and peak device memory.  Each run is a part of a
+    call with that dict (timing.part): a stage below the entry points
+    writes its stats there."""
 
     def __init__(self, dev, runs: int, fn, check, peak: bool = False):
         import torch
@@ -210,7 +213,8 @@ class Runs:
                 torch.cuda.reset_peak_memory_stats(dev)
             _sync(dev)
             t = time.perf_counter()
-            out = fn(st)
+            with timing.part(st):
+                out = fn(st)
             _sync(dev)
             self.walls.append(time.perf_counter() - t)
             if peak and dev.type == "cuda":
@@ -289,14 +293,11 @@ def bench_host(blobs, runs: int, version: int = 1) -> tuple:
 
 
 def _descs(blobs) -> list:
-    """The batch encode's image descriptions, at SEGMENTS segments."""
+    """The batch encode's image descriptions, at SEGMENTS segments
+    (api._parse_images)."""
     from . import api
-    out = []
-    for b in blobs:
-        parsed, info, dec = api._parse(b)
-        splits, _ = api._plan(dec, SEGMENTS)
-        out.append(api._describe(info, dec, splits))
-    return out
+    return api._parse_images(blobs, [SEGMENTS] * len(blobs), False, False,
+                             False)[1]
 
 
 def bench_symbolize(blob: bytes, dev, runs: int) -> dict:
@@ -318,7 +319,7 @@ def bench_symbolize(blob: bytes, dev, runs: int) -> dict:
              "symbolize: a run's symbols differ from the cold run's")
 
     r = Runs(dev, runs, lambda st: batch_encode.symbolize_images(
-        [desc], dev, st), check)
+        [desc], dev), check)
     return dict(r.common(), blocks=blocks, symbols=int(r.out.idx.numel()),
                 symbolize_s=r.stage("symbolize_s")["symbolize_s"],
                 blocks_per_s=r.rate(blocks))
@@ -404,7 +405,7 @@ def bench_coder(blobs, leps: dict, dev, runs: int) -> dict:
     from . import api
     from .kernels import batch_encode, branch_probs
     descs = _descs(blobs)
-    tpl = api._model_template_packed()
+    tpl = host._model_template_packed()
     out = {}
     for version, files in leps.items():
         want = [s for lep in files
@@ -412,7 +413,7 @@ def bench_coder(blobs, leps: dict, dev, runs: int) -> dict:
         idx, bit, _ = batch_encode.assemble_lanes(descs, dev,
                                                   framed=version != 3)
         r = Runs(dev, runs, lambda st, v=version: batch_encode.code_lanes(
-            idx, bit, v, tpl, st), lambda got, v=version: gate(
+            idx, bit, v, tpl), lambda got, v=version: gate(
                 got == want, f"coder: v{v} streams differ from the main "
                              "path's"))
         key = "ans_coder_ms" if version == 3 else "coder_ms"

@@ -598,7 +598,7 @@ def _prepare_for_jail(opts) -> None:
     code and data must be resident first (the reference preallocates
     memory and spawns workers before installing seccomp).  Loads no
     torch: the jailed host path never needs it."""
-    from .util import timing
+    from .util import pool, timing
     _tsnap = timing.snapshot()           # warm-up marks are dropped below
     import concurrent.futures            # noqa: F401
     import pickle                        # noqa: F401  (the parse channel)
@@ -639,7 +639,7 @@ def _prepare_for_jail(opts) -> None:
     host.decompress_streaming(lep)    # serving's default decode path
     host.generic_compress(b"x")
     host._restricted_loads(pickle.dumps((True, None)))
-    host._warm_pool()     # thread stacks must exist before stage 2
+    pool._warm_pool()     # thread stacks must exist before stage 2
     # the warm-up roundtrip stamped the first-write-wins timing matrix;
     # drop its marks so the real transcode's are the ones kept
     timing.restore(_tsnap)

@@ -24,11 +24,6 @@ class ProgressiveError(Exception):
     pass
 
 
-def _u16(v: int) -> int:
-    v &= 0xFFFF
-    return v - 0x10000 if v >= 0x8000 else v
-
-
 def decode_dc_prg_fs(reader, dctree, block) -> int:
     hc = dctree.decode(reader)
     if hc < 0:

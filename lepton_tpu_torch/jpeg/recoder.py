@@ -16,8 +16,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..constants import RASTER_TO_ZIGZAG
-from ..util import timing
+from ..util import pool, timing
 from .bitio import BitWriter
 from .decoder import ThreadHandoff, _next_mcupos, _next_mcuposn
 from .huffman import envli
@@ -309,11 +308,10 @@ def _recode_native(out: BoundedWriter, byte_position: int, hdrdata: bytes,
                 tables=tables, sc=_native.build_hscan(info))
             return seg_buf[:p2], (ob, nb, dc)
 
-        # the host codec's pool: its threads exist before a jail, which
-        # bans the stack mmap of a new one (host._warm_pool)
-        from ..host import _parallel_map
+        # the host's pool: its threads exist before a jail, which bans the
+        # stack mmap of a new one (pool._warm_pool)
         with timing.span("re-emit.native", "recode_native_s"):
-            outs = _parallel_map(run_seg, handoffs)
+            outs = pool.results(pool.map(run_seg, handoffs))
         for i in range(len(handoffs) - 1):
             ob, nb, dc = outs[i][1]
             nxt = handoffs[i + 1]
@@ -324,47 +322,32 @@ def _recode_native(out: BoundedWriter, byte_position: int, hdrdata: bytes,
             n = min(len(seg_bytes), bound + 65536 - pos)
             buf[pos:pos + n] = seg_bytes[:n]
             pos += n
-        result = bytearray(buf[:min(pos, bound)].tobytes())
-        if rst_err:
-            cumulative = ((info.mcuh * info.mcuv - 1) // info.rsti
-                          if info.rsti else 0)
-            for i in range(rst_err[0]):
-                if len(result) < bound:
-                    result.append(0xFF)
-                if len(result) < bound:
-                    result.append(0xD0 + ((cumulative + i) & 7))
-        if len(result) < bound:
-            result += hdrdata[byte_position:
-                              byte_position + (bound - len(result))]
-        result += garbage[:max(0, max_file_size - len(result))]
-        return bytes(result)
-
-    running_ob = handoffs[0].overhang_byte
-    running_nb = (0 if handoffs[0].is_legacy_mode()
-                  else handoffs[0].num_overhang_bits)
-    running_dc = list(handoffs[0].last_dc)
-    running_start = handoffs[0].luma_y_start
-    running_end = handoffs[0].luma_y_end
-    for seg_i, th in enumerate(handoffs):
-        if not th.is_legacy_mode():
-            if seg_i > 0:
-                if th.num_overhang_bits != running_nb or \
-                        th.overhang_byte != running_ob or \
-                        list(th.last_dc[:3]) != running_dc[:3]:
+    else:
+        running_ob = handoffs[0].overhang_byte
+        running_nb = (0 if handoffs[0].is_legacy_mode()
+                      else handoffs[0].num_overhang_bits)
+        running_dc = list(handoffs[0].last_dc)
+        running_start = handoffs[0].luma_y_start
+        running_end = handoffs[0].luma_y_end
+        for seg_i, th in enumerate(handoffs):
+            if not th.is_legacy_mode():
+                if seg_i > 0 and (th.num_overhang_bits != running_nb
+                                  or th.overhang_byte != running_ob
+                                  or list(th.last_dc[:3]) != running_dc[:3]):
                     raise RecodeError(f"handoff mismatch at segment {seg_i}")
-            running_ob = th.overhang_byte
-            running_nb = th.num_overhang_bits
-            running_dc = list(th.last_dc)
-        running_start = th.luma_y_start
-        running_end = th.luma_y_end
-        start_row = running_start // luma_mul
-        end_row = running_end // luma_mul
-        with timing.span("re-emit.native", "recode_native_s"):
-            pos, running_ob, running_nb, running_dc = \
-                _native.native_recode_rows(
-                    info, planes_c, start_row, end_row, running_ob,
-                    running_nb, running_dc, padbit, rst_cnt, rst_cnt_set,
-                    buf, bound, pos, tables=tables, sc=sc)
+                running_ob = th.overhang_byte
+                running_nb = th.num_overhang_bits
+                running_dc = list(th.last_dc)
+            running_start = th.luma_y_start
+            running_end = th.luma_y_end
+            start_row = running_start // luma_mul
+            end_row = running_end // luma_mul
+            with timing.span("re-emit.native", "recode_native_s"):
+                pos, running_ob, running_nb, running_dc = \
+                    _native.native_recode_rows(
+                        info, planes_c, start_row, end_row, running_ob,
+                        running_nb, running_dc, padbit, rst_cnt, rst_cnt_set,
+                        buf, bound, pos, tables=tables, sc=sc)
 
     result = bytearray(buf[:min(pos, bound)].tobytes())
     if rst_err:

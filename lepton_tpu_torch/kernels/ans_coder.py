@@ -38,6 +38,7 @@ import torch
 
 from ..coder.ans import ANS_PARITY_TAIL
 from ..model.tables import ARENA_SIZE
+from ..util import timing
 from . import branch_probs as bp
 from . import cuda_build
 from .branch_probs import branch_update_adv
@@ -118,7 +119,7 @@ def default_cap(L: int) -> int:
 
 def encode_streams_ans(idx: torch.Tensor, bit: torch.Tensor,
                        nsyms: torch.Tensor,
-                       template: Optional[torch.Tensor] = None, stats=None):
+                       template: Optional[torch.Tensor] = None):
     """rANS-code S unframed symbol lanes: idx int32 [S, L], bit uint8
     [S, L], of which lane s codes its first nsyms[s] (int32 [S]).
 
@@ -129,15 +130,14 @@ def encode_streams_ans(idx: torch.Tensor, bit: torch.Tensor,
     as uint32 bit patterns, with nwords <= cap.  The probability stage
     runs once; the walk reruns alone when a lane outgrows cap.
     finalize_ans makes the lane bytes.  A lane that codes a 0 bit at
-    probability 0 raises ValueError.  stats: optional dict that receives
-    the probability stage's (branch_probs) and, on CUDA tensors,
-    walk_ms."""
+    probability 0 raises ValueError.  Stats of the open call: the
+    probability stage's (branch_probs) and, on CUDA tensors, walk_ms."""
     _check_low(idx)
-    probs, zero = bp.branch_probs(idx, bit, template, "adv", nsyms, stats)
+    probs, zero = bp.branch_probs(idx, bit, template, "adv", nsyms)
     if bool(zero.any()):
         _raise_zero_freq(torch.nonzero(zero).flatten().tolist())
-    return bp.timed(lambda: ans_walk(probs, bit, nsyms), idx.device, stats,
-                    "walk_ms", name="coder.walk")
+    return timing.timed(lambda: ans_walk(probs, bit, nsyms), idx.device,
+                        "walk_ms", name="coder.walk")
 
 
 def _raise_zero_freq(lanes) -> None:

@@ -43,11 +43,10 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from ..host import LeptonError
+from ..errors import LeptonError
 from ..model.tables import arena_from_template
 from ..util import timing
 from .ans_coder import encode_streams_ans, finalize_ans
-from .branch_probs import add_pending, timed
 from .encode_pipeline import plan_rows, segment_top_rows
 from .symbolize import (emit_symbols, emit_symbols_plain, plane_inputs,
                         symbol_counts, symbol_runs_plain)
@@ -69,18 +68,18 @@ def _kernel_route(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
-def _count_plane(plane, kernels: bool, stats=None, pending=None):
+def _count_plane(plane, kernels: bool):
     """Stage 2 of one plane: (offsets int64 [H, W], the plane's total
     int64 [1], its per-row counts int64 [H], runs) on the plane's device,
     with no host read; a row with a value past 11 bits counts -1.  On the
-    kernel route symbol_counts (stats, pending: its CUDA-event time,
-    branch_probs.timed); else the plain slab, made once for both stages
+    kernel route symbol_counts (its CUDA-event time deferred to the open
+    call, timing.timed); else the plain slab, made once for both stages
     (runs: symbol_runs_plain, for _emit_plane)."""
     dev = plane.coefs.device
     runs = None
     if kernels:
-        counts, over = timed(lambda: symbol_counts(plane), dev, stats,
-                             "symbol_counts_ms", pending)
+        counts, over = timing.timed(lambda: symbol_counts(plane), dev,
+                                    "symbol_counts_ms", defer=True)
     else:
         runs = symbol_runs_plain(plane)
         counts, over = runs[:2]
@@ -91,18 +90,18 @@ def _count_plane(plane, kernels: bool, stats=None, pending=None):
     return offsets, ends[-1:], rows, runs
 
 
-def _emit_plane(plane, offsets, total: int, runs, kernels: bool,
-                stats=None, pending=None, out=None):
+def _emit_plane(plane, offsets, total: int, runs, kernels: bool, out=None):
     """Stage 4 of one plane: its `total` symbols (idx int32, bit uint8),
-    into `out` when given (emit_symbols)."""
+    into `out` when given (emit_symbols; its CUDA-event time deferred as
+    _count_plane's)."""
     if kernels:
-        return timed(lambda: emit_symbols(plane, offsets, total, out),
-                     plane.coefs.device, stats, "symbol_emit_ms", pending)
+        return timing.timed(lambda: emit_symbols(plane, offsets, total, out),
+                            plane.coefs.device, "symbol_emit_ms", defer=True)
     return emit_symbols_plain(plane, offsets, total, runs, out)
 
 
 def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
-                     size_limit: int, stats=None, pending=None):
+                     size_limit: int):
     """Live symbols of one plane in emission order, and its per-row counts:
     _count_plane, one host read of the plane's total, _emit_plane.
 
@@ -110,9 +109,8 @@ def _symbolize_plane(coefs: torch.Tensor, ci: int, ct, row_has_above,
     device; a row with a value past 11 bits counts -1."""
     plane = plane_inputs(coefs, ci, ct, row_has_above, size_limit)
     kernels = _kernel_route(coefs.device)
-    offsets, total, rows, runs = _count_plane(plane, kernels, stats, pending)
-    idx, bit = _emit_plane(plane, offsets, int(total), runs, kernels, stats,
-                           pending)
+    offsets, total, rows, runs = _count_plane(plane, kernels)
+    idx, bit = _emit_plane(plane, offsets, int(total), runs, kernels)
     return idx, bit, rows
 
 
@@ -122,14 +120,14 @@ def image_plan(im) -> list:
                      im["max_coded_heights"], im["splits_y"])
 
 
-def _upload(a: np.ndarray, dtype, dev, stats=None) -> torch.Tensor:
+def _upload(a: np.ndarray, dtype, dev) -> torch.Tensor:
     """a on dev as dtype: on the card through pinned host memory, queued
     on the current stream without waiting (torch's pinned allocator keeps
-    the host buffer until the copy is done).  stats: optional dict whose
-    stage_s (the span symbolize.stage) and stage_bytes (the bytes staged)
-    it adds to (default: the open call's)."""
-    with timing.span("symbolize.stage", "stage_s", stats=stats):
-        timing.add("stage_bytes", a.size * dtype.itemsize, stats)
+    the host buffer until the copy is done).  Stats of the open call:
+    stage_s (the span symbolize.stage) and stage_bytes (the bytes
+    staged)."""
+    with timing.span("symbolize.stage", "stage_s"):
+        timing.add("stage_bytes", a.size * dtype.itemsize)
         if dev.type != "cuda":
             return torch.as_tensor(np.ascontiguousarray(a),
                                    device=dev).to(dtype)
@@ -138,11 +136,11 @@ def _upload(a: np.ndarray, dtype, dev, stats=None) -> torch.Tensor:
         return host.to(dev, non_blocking=True)
 
 
-def image_planes(im, plan, dev, stats=None):
+def image_planes(im, plan, dev):
     """Each plane of one image as plane_inputs takes it: (component, int16
-    coefficients [H, W, 64] copied to dev, the model's colour index, its
-    ColorTables, row_has_above bool [H] on dev (False at row 0 and at each
-    segment's top row), size_limit).  stats: as _upload takes it."""
+    coefficients [H, W, 64] copied to dev (_upload), the model's colour
+    index, its ColorTables, row_has_above bool [H] on dev (False at row 0
+    and at each segment's top row), size_limit)."""
     cix = im.get("color_index")
     tops = segment_top_rows(plan, len(im["planes"]))
     for c, p in enumerate(im["planes"]):
@@ -150,8 +148,8 @@ def image_planes(im, plan, dev, stats=None):
         rha[0] = False
         rha[sorted(tops[c])] = False
         ci = (0 if c == 0 else 1) if cix is None else cix(c)
-        yield (c, _upload(p, torch.int16, dev, stats), ci,
-               im["color_tables"][c], _upload(rha, torch.bool, dev, stats),
+        yield (c, _upload(p, torch.int16, dev), ci,
+               im["color_tables"][c], _upload(rha, torch.bool, dev),
                im["component_sizes"][c])
 
 
@@ -188,8 +186,7 @@ class Symbols(NamedTuple):
         return self._replace(idx=self.idx.to(device), bit=self.bit.to(device))
 
 
-def symbolize_images(images, device="cuda", stats=None,
-                     segment_range=None) -> Symbols:
+def symbolize_images(images, device="cuda", segment_range=None) -> Symbols:
     """Stages 1-4: the live symbols of a batch, on `device`.
 
     images: list of dicts with keys planes (int16 [H, W, 64] numpy),
@@ -202,29 +199,27 @@ def symbolize_images(images, device="cuda", stats=None,
     whole, as its top-row masks depend on every split; one without is not
     symbolized.  Every plane is uploaded and counted before the batch's
     one host read; then each plane's symbols are written into one output.
-    stats: optional dict that receives symbolize_s (the span symbolize),
-    stage_s and stage_bytes (_upload) and, on the card, the symbol
-    kernels' CUDA-event ms summed over the planes (symbol_counts_ms,
-    symbol_emit_ms)."""
+    Stats of the open call: symbolize_s (the span symbolize), stage_s and
+    stage_bytes (_upload) and, on the card, the symbol kernels' CUDA-event
+    ms summed over the planes (symbol_counts_ms, symbol_emit_ms), settled
+    after the stage's sync."""
     dev = torch.device(device)
-    stats = {} if stats is None else stats
-    with timing.span("symbolize", "symbolize_s", stats=stats):
-        return _symbolize(images, dev, stats, segment_range)
+    with timing.span("symbolize", "symbolize_s"):
+        return _symbolize(images, dev, segment_range)
 
 
-def _symbolize(images, dev, stats, segment_range) -> Symbols:
+def _symbolize(images, dev, segment_range) -> Symbols:
     kernels = _kernel_route(dev)
-    counted, plane_base, pending = [], {}, []
+    counted, plane_base = [], {}
     plans = [image_plan(im) for im in images]
     ranges = _ranges(segment_range, plans)
     for d, (im, plan) in enumerate(zip(images, plans)):
         if ranges[d][0] == ranges[d][1]:
             continue                # no lane of this image: nothing to code
-        for c, *args in image_planes(im, plan, dev, stats):
+        for c, *args in image_planes(im, plan, dev):
             plane = plane_inputs(*args)
             with timing.span("symbolize.count", image=d):
-                counted.append((plane,) + _count_plane(plane, kernels, stats,
-                                                       pending))
+                counted.append((plane,) + _count_plane(plane, kernels))
             plane_base[d, c] = len(counted) - 1
     # one device-to-host copy: every plane's total, then every row count
     with timing.span("symbolize.read"):
@@ -246,18 +241,17 @@ def _symbolize(images, dev, stats, segment_range) -> Symbols:
     for p, (plane, offsets, _, _, runs) in enumerate(counted):
         n = int(totals[p])
         with timing.span("symbolize.emit", image=image_of[p]):
-            _emit_plane(plane, offsets, n, runs, kernels, stats, pending,
+            _emit_plane(plane, offsets, n, runs, kernels,
                         (sym_i[at:at + n], sym_b[at:at + n]))
         counted[p] = None       # the plane's coefficients are not needed
         at += n
     _sync(dev)
-    add_pending(stats, pending)
+    timing.settle()
     return Symbols(sym_i, sym_b, row_counts, row_off, first_row, plane_base,
                    plans, ranges)
 
 
-def lanes(sym: Symbols, framed: bool = True, stats=None,
-          segment_range=None):
+def lanes(sym: Symbols, framed: bool = True, segment_range=None):
     """Stage 5: the symbol lanes of segments of a batch, on the device of
     sym.  framed: VPX lanes (the marker bit before the segment's symbols,
     the 32 stop bits after); False gives the unframed lanes of rANS.
@@ -265,17 +259,15 @@ def lanes(sym: Symbols, framed: bool = True, stats=None,
     an image, each of an image that sym symbolized.  Returns (idx int32
     [S, L], bit uint8 [S, L], owners), where lane s codes segment
     owners[s][1] (the image's own segment number) of image owners[s][0],
-    PAD after its symbols.  stats: optional dict that receives
-    assemble_s (the span coder.lanes), lanes, symbols and
-    max_lane_symbols."""
-    stats = {} if stats is None else stats
+    PAD after its symbols.  Stats of the open call: assemble_s (the span
+    coder.lanes), lanes, symbols and max_lane_symbols."""
     ranges = sym.ranges if segment_range is None \
         else _ranges(segment_range, sym.plans)
-    with timing.span("coder.lanes", "assemble_s", stats=stats):
-        return _assemble(sym, framed, stats, ranges)
+    with timing.span("coder.lanes", "assemble_s"):
+        return _assemble(sym, framed, ranges)
 
 
-def _assemble(sym: Symbols, framed: bool, stats, ranges):
+def _assemble(sym: Symbols, framed: bool, ranges):
     dev = sym.idx.device
     runs, owners = [], []
     for d, (plan, (lo, hi)) in enumerate(zip(sym.plans, ranges)):
@@ -305,35 +297,39 @@ def _assemble(sym: Symbols, framed: bool, stats, ranges):
             bit[s, head:head + n] = torch.cat([sym.bit[a:a + k]
                                                for a, k in lane])
     _sync(dev)
-    stats["lanes"] = S
-    stats["symbols"] = int(sum(lengths))
-    stats["max_lane_symbols"] = L
+    _count_lanes(lengths)
     return idx, bit, owners
 
 
-def assemble_lanes(images, device="cuda", stats=None, framed: bool = True,
+def _count_lanes(lengths) -> None:
+    """The open call's lanes, symbols and max_lane_symbols."""
+    timing.add("lanes", len(lengths))
+    timing.add("symbols", int(sum(lengths)))
+    timing.add("max_lane_symbols", max(lengths, default=0))
+
+
+def assemble_lanes(images, device="cuda", framed: bool = True,
                    segment_range=None):
     """Stages 1-5: the symbol lanes of a batch, symbolize_images then
-    lanes (which say what the arguments, the result and stats hold)."""
-    return lanes(symbolize_images(images, device, stats, segment_range),
-                 framed, stats)
+    lanes (which say what the arguments, the result and the stats
+    hold)."""
+    return lanes(symbolize_images(images, device, segment_range), framed)
 
 
 def encode_images_device(images, version: int = 1, template=None,
-                         device="cuda", stats=None,
+                         device="cuda",
                          segment_range=None) -> List[List[bytes]]:
     """Batch-encode many images on one device (the contract of
     lepton_tpu.kernels.batch_encode.encode_images_device): returns
     per-image lists of per-segment stream bytes, byte-identical to the
     host coder.  symbolize_images then encode_symbols; segment_range as
     symbolize_images takes it."""
-    return encode_symbols(
-        symbolize_images(images, device, stats, segment_range), version,
-        template, stats)
+    return encode_symbols(symbolize_images(images, device, segment_range),
+                          version, template)
 
 
 def encode_symbols(sym: Symbols, version: int = 1, template=None,
-                   stats=None, segment_range=None) -> List[List[bytes]]:
+                   segment_range=None) -> List[List[bytes]]:
     """Stages 5-6 on the device of sym: lanes(sym, segment_range=) coded.
     Returns each image's list of the streams of its segments lo..hi-1, in
     segment order; a call with no lane launches nothing.
@@ -341,23 +337,21 @@ def encode_symbols(sym: Symbols, version: int = 1, template=None,
     version: 1 or 2 (VPX streams; the version only selects the container
     header compression) or 3 (rANS streams).  template: optional packed
     uint32 [ARENA_SIZE] trained-model start state
-    (lepton_tpu.api._model_template_packed layout) for every lane.  stats:
-    optional dict that receives the stage seconds and counts of lanes(),
-    the whole coder's time (coder_ms for VPX lanes, ans_coder_ms for rANS
-    lanes; CUDA events on the card), on the card its stages' (sort_ms,
-    probs_ms, walk_ms) and longest_run, and finalize_s."""
+    (lepton_tpu.api._model_template_packed layout) for every lane.  Stats
+    of the open call: the stage seconds and counts of lanes(), the whole
+    coder's time (coder_ms for VPX lanes, ans_coder_ms for rANS lanes;
+    CUDA events on the card), on the card its stages' (sort_ms, probs_ms,
+    walk_ms) and longest_run, and finalize_s."""
     if version not in (1, 2, 3):
         raise ValueError(f"no version {version} lanes")
-    stats = {} if stats is None else stats
-    idx, bit, owners = lanes(sym, version != 3, stats, segment_range)
+    idx, bit, owners = lanes(sym, version != 3, segment_range)
     result = [[] for _ in sym.plans]
-    for (d, _), st in zip(owners, code_lanes(idx, bit, version, template,
-                                             stats)):
+    for (d, _), st in zip(owners, code_lanes(idx, bit, version, template)):
         result[d].append(st)
     return result
 
 
-def symbol_lanes(segments, framed: bool = True, device="cuda", stats=None):
+def symbol_lanes(segments, framed: bool = True, device="cuda"):
     """Stage 5 from symbols made on the host, a (branch index int32, bit
     uint8) pair of arrays a segment (_native.native_symbolize_segment):
     the lanes that lanes() assembles from the device's symbols, one a
@@ -365,12 +359,11 @@ def symbol_lanes(segments, framed: bool = True, device="cuda", stats=None):
     marker bit, the symbols, the 32 stop bits, as
     lepton_tpu/kernels/vpx_scan.py:119 build_symbol_streams frames them);
     False gives the unframed lanes of rANS.  Returns (idx int32 [S, L],
-    bit uint8 [S, L]) on `device`, PAD after each lane's symbols.  stats:
-    optional dict that receives assemble_s (host framing and upload; the
-    span coder.lanes), lanes, symbols and max_lane_symbols."""
+    bit uint8 [S, L]) on `device`, PAD after each lane's symbols.  Stats
+    of the open call: assemble_s (host framing and upload; the span
+    coder.lanes), lanes, symbols and max_lane_symbols."""
     dev = torch.device(device)
-    stats = {} if stats is None else stats
-    with timing.span("coder.lanes", "assemble_s", stats=stats):
+    with timing.span("coder.lanes", "assemble_s"):
         head, tail = (1, STOP_BITS) if framed else (0, 0)
         lengths = [head + len(i) + tail for i, _ in segments]
         S, L = len(segments), max(lengths, default=0)
@@ -386,21 +379,18 @@ def symbol_lanes(segments, framed: bool = True, device="cuda", stats=None):
         idx = torch.as_tensor(idx, device=dev)
         bit = torch.as_tensor(bit, device=dev)
         _sync(dev)
-    stats["lanes"] = S
-    stats["symbols"] = int(sum(lengths))
-    stats["max_lane_symbols"] = L
+    _count_lanes(lengths)
     return idx, bit
 
 
 def code_lanes(idx: torch.Tensor, bit: torch.Tensor, version: int = 1,
-               template=None, stats=None) -> List[bytes]:
+               template=None) -> List[bytes]:
     """Stage 6: the streams of the lanes idx int32 [S, L], bit uint8
     [S, L] (lanes() or symbol_lanes()), one a lane, coded on their device
     by the VPX coder (version 1 or 2) or the ANS coder (version 3); no
-    lane, no launch.  version, template and stats as encode_symbols takes
-    them; the whole coder's time (coder_ms or ans_coder_ms) is
-    branch_probs.timed's, the host clock off the card."""
-    stats = {} if stats is None else stats
+    lane, no launch.  version, template and the stats as encode_symbols
+    takes and writes them; the whole coder's time (coder_ms or
+    ans_coder_ms) is timing.timed's, the host clock off the card."""
     dev = idx.device
     ans = version == 3
     if not len(idx):
@@ -411,10 +401,11 @@ def code_lanes(idx: torch.Tensor, bit: torch.Tensor, version: int = 1,
         if ans:
             # every symbol of an unframed lane is a branch; PAD follows them
             nsyms = (idx != PAD).sum(1, dtype=torch.int32)
-            run = partial(encode_streams_ans, idx, bit, nsyms, tpl, stats)
+            run = partial(encode_streams_ans, idx, bit, nsyms, tpl)
         else:
-            run = partial(encode_streams, idx, bit, tpl, stats)
-        out, nout = timed(run, dev, stats,
-                          "ans_coder_ms" if ans else "coder_ms", host=True)
-        with timing.span("coder.finalize", "finalize_s", stats=stats):
+            run = partial(encode_streams, idx, bit, tpl)
+        out, nout = timing.timed(run, dev,
+                                 "ans_coder_ms" if ans else "coder_ms",
+                                 host=True)
+        with timing.span("coder.finalize", "finalize_s"):
             return finalize_ans(out, nout) if ans else finalize(out, nout)

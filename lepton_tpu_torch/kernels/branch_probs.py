@@ -30,14 +30,13 @@ this stage existed: a lockstep walk of every lane over its own model arena.
 The coders' whole-function plain versions use it, so they stay independent
 of the grouping.
 
-grow and timed are plumbing that both coders share: a walk run again while
-a lane overflows its output, and a CUDA-event time into a stats dict.
+grow is plumbing that both coders share: a walk run again while a lane
+overflows its output.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-import time
 from typing import Optional
 
 import torch
@@ -101,43 +100,6 @@ def grow(walk, cap: int):
         if need <= cap:
             return out, n
         cap = need
-
-
-def timed(fn, dev, stats, key, pending=None, host=False, name=None):
-    """fn(), with its time in ms in stats[key] when stats is given: by CUDA
-    events on a CUDA device; off the card by the host clock where host is
-    True, else not at all.  pending: a list that takes (key, start, end)
-    in place of the wait, for the caller to add to stats after a later
-    sync (add_pending).  name: a timing.span around fn (on the calling
-    thread)."""
-    if name is not None:
-        with timing.span(name):
-            return timed(fn, dev, stats, key, pending, host)
-    if stats is None or (dev.type != "cuda" and not host):
-        return fn()
-    if dev.type != "cuda":
-        t = time.perf_counter()
-        r = fn()
-        stats[key] = (time.perf_counter() - t) * 1e3
-        return r
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    r = fn()
-    end.record()
-    if pending is not None:
-        pending.append((key, start, end))
-        return r
-    end.synchronize()
-    stats[key] = start.elapsed_time(end)
-    return r
-
-
-def add_pending(stats, pending) -> None:
-    """Add the times of timed's pending events to stats, summed by key;
-    their work must have ended."""
-    for key, start, end in pending:
-        stats[key] = stats.get(key, 0.0) + start.elapsed_time(end)
 
 
 def _get_lib():
@@ -225,7 +187,7 @@ def group(idx: torch.Tensor, bit: torch.Tensor,
 
 def branch_probs(idx: torch.Tensor, bit: torch.Tensor,
                  template: Optional[torch.Tensor] = None, rule: str = "vpx",
-                 nsyms: Optional[torch.Tensor] = None, stats=None):
+                 nsyms: Optional[torch.Tensor] = None):
     """Each symbol's coding probability: the probability of its branch
     before the branch sees the symbol's bit, on first use the template's
     stored prob byte (default: every branch (1, 1, 128)).
@@ -237,25 +199,26 @@ def branch_probs(idx: torch.Tensor, bit: torch.Tensor,
     lane s past nsyms[s] are not coded.  Returns (probs uint8 [S, L] in
     stream order, 128 where no branch is coded; zero bool [S], under "adv"
     the lanes that code a 0 bit at probability 0, which has no rANS code).
-    stats: optional dict that receives live (symbols), runs and
+    Stats of the open call (util/timing.py): live (symbols), runs and
     longest_run, and on CUDA tensors the CUDA-event times sort_ms
     (group), heads_ms (run_heads), runs_ms (walk_runs) and probs_ms (the
     two kernels together)."""
     check(idx, bit, template, rule, nsyms)
     dev = idx.device
-    keys, shift = timed(lambda: group(idx, bit, nsyms), dev, stats,
-                        "sort_ms", name="coder.sort")
+    keys, shift = timing.timed(lambda: group(idx, bit, nsyms), dev,
+                               "sort_ms", name="coder.sort")
 
     def kernels():
-        heads = timed(lambda: run_heads(keys, shift), dev, stats, "heads_ms")
-        return len(heads), timed(
+        heads = timing.timed(lambda: run_heads(keys, shift), dev, "heads_ms")
+        return len(heads), timing.timed(
             lambda: walk_runs(keys, shift, heads, idx.shape, template, rule),
-            dev, stats, "runs_ms")
+            dev, "runs_ms")
 
-    nruns, (probs, zero, longest) = timed(kernels, dev, stats, "probs_ms",
-                                          name="coder.probs")
-    if stats is not None:
-        stats.update(live=keys.numel(), runs=nruns, longest_run=longest)
+    nruns, (probs, zero, longest) = timing.timed(kernels, dev, "probs_ms",
+                                                 name="coder.probs")
+    timing.add("live", keys.numel())
+    timing.add("runs", nruns)
+    timing.add("longest_run", longest)
     return probs, zero
 
 

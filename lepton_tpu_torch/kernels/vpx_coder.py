@@ -31,6 +31,7 @@ import torch
 
 from .. import constants as C
 from ..model.tables import ARENA_SIZE
+from ..util import timing
 from . import branch_probs as bp
 from . import cuda_build
 
@@ -89,19 +90,19 @@ def default_cap(L: int) -> int:
 
 
 def encode_streams(idx: torch.Tensor, bit: torch.Tensor,
-                   template: Optional[torch.Tensor] = None, stats=None):
+                   template: Optional[torch.Tensor] = None):
     """Encode S padded symbol streams idx int32 [S, L], bit uint8 [S, L].
 
     template: optional int32 [ARENA_SIZE] start arena in the coder layout
     (model.tables.arena_from_template); default: every branch (1, 1, 128).
     Returns (bytes uint8 [S, cap], nbytes int32 [S]) on the input's device,
     with nbytes <= cap.  The probability stage runs once; the walk reruns
-    alone when a lane outgrows cap.  stats: optional dict that receives
-    the probability stage's (branch_probs) and, on CUDA tensors, walk_ms."""
+    alone when a lane outgrows cap.  Stats of the open call: the
+    probability stage's (branch_probs) and, on CUDA tensors, walk_ms."""
     _check_low(idx)
-    probs, _ = bp.branch_probs(idx, bit, template, "vpx", stats=stats)
-    return bp.timed(lambda: vpx_walk(idx, bit, probs), idx.device, stats,
-                    "walk_ms", name="coder.walk")
+    probs, _ = bp.branch_probs(idx, bit, template, "vpx")
+    return timing.timed(lambda: vpx_walk(idx, bit, probs), idx.device,
+                        "walk_ms", name="coder.walk")
 
 
 def vpx_walk(idx: torch.Tensor, bit: torch.Tensor, probs: torch.Tensor):

@@ -22,17 +22,17 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import api
+from .. import api, host
 from ..container.mux import mux_streams
 from ..kernels import batch_encode, vpx_decoder
 from ..kernels.contexts import phase_a
+from ..util import timing
 
 # host.compress arguments that the card route takes, with their defaults;
 # any other argument of host.compress it honours only at its default value
@@ -151,7 +151,8 @@ def decode_shares(plan, mesh: "Mesh", template, dev: torch.device,
     divide raises ValueError, as that function fails its assert (:898);
     with even=False the shares are as near equal as may be, over at most
     as many devices as there are lanes.  Returns (coef, err, each share's
-    launch ms, the merge's seconds)."""
+    launch ms); the merge's seconds go to the open call's merge_s (span
+    reader.merge)."""
     devices = mesh.axis_devices("seg")
     S = len(plan.lanes)
     if even and S % len(devices):
@@ -165,11 +166,11 @@ def decode_shares(plan, mesh: "Mesh", template, dev: torch.device,
         return (lo, hi) + api._timed_decode(plan.share(lo, hi).to(d), tpl, d)
 
     shares = on_devices(share, devices)
-    t = time.perf_counter()
-    coef, err = vpx_decoder.merge_shares(
-        plan, [(lo, hi, c, e) for lo, hi, c, e, _ in shares], dev)
-    batch_encode._sync(dev)
-    return coef, err, [ms for *_, ms in shares], time.perf_counter() - t
+    with timing.span("reader.merge", "merge_s"):
+        coef, err = vpx_decoder.merge_shares(
+            plan, [(lo, hi, c, e) for lo, hi, c, e, _ in shares], dev)
+        batch_encode._sync(dev)
+    return coef, err, [ms for *_, ms in shares]
 
 
 def make_mesh(n_devices: Optional[int] = None, data_axis: int = 0,
@@ -292,11 +293,12 @@ def batch_compress(jpeg_blobs: Sequence[bytes], max_workers: int = 0,
     honoured only at their defaults, and any other value raises
     ValueError (pass device="host").
 
-    stats: optional dict (card route) that receives parse_s, symbolize_s
-    and code_s (the two device stages' walls), mux_s, rows: one dict a
-    'data' row with its device, its images and its symbolize_s, and
-    shares: one dict a device with its data row and seg column, its images
-    and its encode_symbols stats."""
+    stats: optional dict (card route) that receives parse_s and the other
+    keys of api._parse_images, symbolize_s and code_s (the two device
+    stages' walls), mux_s, rows: one dict a 'data' row with its device,
+    its images and its symbolize_s, and shares: one dict a device with its
+    data row and seg column, its images and its encode_symbols stats.  A
+    device's thread writes its row's or its share's dict (timing.part)."""
     if device == "host":
         if mesh is not None:
             raise ValueError("device='host' takes no mesh")
@@ -315,57 +317,48 @@ def batch_compress(jpeg_blobs: Sequence[bytes], max_workers: int = 0,
     grid = _card_mesh(mesh, device)
     stats = {} if stats is None else stats
     nd, ns = grid.shape
+    with timing.call(stats, "encode"):
+        with timing.span("parse", "parse_s", stage="TS_JPEG_DECODE"):
+            metas, descs = api._parse_images(
+                jpeg_blobs, [opts["max_threads"]] * len(jpeg_blobs), False,
+                opts["allow_progressive"], opts["allow_four_colors"])
+        images = [_share(len(descs), r, nd) for r in range(nd)]
+        rows = [dict(data=r, device=str(grid[r, 0]), images=images[r])
+                for r in range(nd)]
+        shares = [dict(data=k // ns, seg=k % ns, device=str(dev),
+                       images=images[k // ns])
+                  for k, dev in enumerate(grid.flat)]
+        template = host._model_template_packed()
 
-    t = time.perf_counter()
-    metas, descs = [], []
-    for i, data in enumerate(jpeg_blobs):
-        try:
-            parsed, info, dec = api._parse(data, opts["allow_progressive"],
-                                           opts["allow_four_colors"])
-            splits, num_threads = api._plan(dec, opts["max_threads"])
-            descs.append(api._describe(info, dec, splits))
-        except Exception as e:
-            raise api.request_error(i, e)
-        metas.append((parsed, dec, splits, num_threads))
-    stats["parse_s"] = time.perf_counter() - t
+        def symbolize(r, dev):
+            i0, i1 = images[r]
+            with timing.part(rows[r]):
+                return batch_encode.symbolize_images(descs[i0:i1], dev)
 
-    template = api._model_template_packed()
-    images = [_share(len(descs), r, nd) for r in range(nd)]
-    rows = [dict(data=r, device=str(grid[r, 0]), images=images[r])
-            for r in range(nd)]
-    shares = [dict(data=k // ns, seg=k % ns, device=str(dev),
-                   images=images[k // ns])
-              for k, dev in enumerate(grid.flat)]
+        def code(k, dev):
+            (i0, i1), j = images[k // ns], k % ns
+            ranges = [_share(len(d["splits_y"]), j, ns)
+                      for d in descs[i0:i1]]
+            with timing.part(shares[k]):
+                return batch_encode.encode_symbols(
+                    syms[k // ns].to(dev), opts["version"], template,
+                    segment_range=ranges)
 
-    def symbolize(r, dev):
-        i0, i1 = images[r]
-        return batch_encode.symbolize_images(descs[i0:i1], dev, rows[r])
-
-    def code(k, dev):
-        (i0, i1), j = images[k // ns], k % ns
-        ranges = [_share(len(d["splits_y"]), j, ns) for d in descs[i0:i1]]
-        return batch_encode.encode_symbols(
-            syms[k // ns].to(dev), opts["version"], template, shares[k],
-            segment_range=ranges)
-
-    t = time.perf_counter()
-    syms = on_devices(symbolize, list(grid[:, 0]))
-    stats["symbolize_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    parts = on_devices(code, list(grid.flat))
-    stats["code_s"] = time.perf_counter() - t
-    del syms
-    stats["rows"], stats["shares"] = rows, shares
-
-    t = time.perf_counter()
-    out = []
-    for i, (parsed, dec, splits, num_threads) in enumerate(metas):
-        r = next(r for r in range(nd) if images[r][0] <= i < images[r][1])
-        streams = [st for k in range(r * ns, (r + 1) * ns)
-                   for st in parts[k][i - images[r][0]]]
-        out.append(api._container(parsed, dec, splits, num_threads, streams,
-                                  opts["version"]))
-    stats["mux_s"] = time.perf_counter() - t
+        with timing.span("mesh.symbolize", "symbolize_s"):
+            syms = on_devices(symbolize, list(grid[:, 0]))
+        with timing.span("mesh.code", "code_s"):
+            parts = on_devices(code, list(grid.flat))
+        del syms
+        stats["rows"], stats["shares"] = rows, shares
+        with timing.span("container", "mux_s", stage="TS_STREAM_MULTIPLEX"):
+            out = []
+            for i, (parsed, dec, splits, num_threads) in enumerate(metas):
+                r = next(r for r in range(nd)
+                         if images[r][0] <= i < images[r][1])
+                streams = [st for k in range(r * ns, (r + 1) * ns)
+                           for st in parts[k][i - images[r][0]]]
+                out.append(api._container(parsed, dec, splits, num_threads,
+                                          streams, opts["version"]))
     return out
 
 

@@ -23,7 +23,6 @@ Two processes on one machine, each on its own device (or both on one):
 from __future__ import annotations
 
 import datetime
-import time
 from functools import partial
 from typing import List
 
@@ -37,6 +36,7 @@ from ..jpeg.decoder import decode_scans
 from ..jpeg.imageinfo import image_info_from_header
 from ..jpeg.parser import parse_jpeg
 from ..kernels import batch_encode
+from ..util import timing
 from .mesh import on_device
 
 
@@ -123,39 +123,37 @@ def distributed_compress(jpeg_data: bytes, num_segments: int = 8,
         if device is None:
             dev = torch.device("cuda", rank % torch.cuda.device_count())
 
-    t = time.perf_counter()
-    parsed = parse_jpeg(jpeg_data)
-    info = image_info_from_header(parsed.hdrdata)
-    dec = decode_scans(parsed, info)
-    splits = select_splits(dec.handoffs, num_segments, even_split=True)
-    S = len(splits)
-    bounds = [th.luma_y_start for th in splits] + [info.cmpnfo[0].bcv]
-    lo, hi = S * rank // nproc, S * (rank + 1) // nproc
-    stats.update(rank=rank, world=nproc, lanes=hi - lo,
-                 parse_s=time.perf_counter() - t)
-
-    t = time.perf_counter()
-    if engine == "device":
-        # symbolization covers the whole plane; assembly and the coder
-        # run only this process's lanes
-        with on_device(dev):
-            local = batch_encode.encode_images_device(
-                [api._describe(info, dec, splits)], 1, device=dev,
-                stats=stats, segment_range=[(lo, hi)])[0]
-    else:
-        mh, cs = api._truncation_geometry(info, dec)
-        if host._segment_codec_is_native():
-            enc = host._native_image(info, dec.planes, mh, cs).encode_segment
-        else:
-            enc = partial(encode_segment,
-                          host._python_image(info, dec.planes, mh, cs))
-        local = [enc(bounds[i], bounds[i + 1], i == S - 1)
-                 for i in range(lo, hi)]
-    stats["encode_s"] = time.perf_counter() - t
-
-    t = time.perf_counter()
-    streams = gather_streams_to_host0(local)
-    stats["gather_s"] = time.perf_counter() - t
+    with timing.call(stats, "encode"):
+        with timing.span("parse", "parse_s", stage="TS_JPEG_DECODE"):
+            parsed = parse_jpeg(jpeg_data)
+            info = image_info_from_header(parsed.hdrdata)
+            dec = decode_scans(parsed, info)
+            splits = select_splits(dec.handoffs, num_segments,
+                                   even_split=True)
+        S = len(splits)
+        bounds = [th.luma_y_start for th in splits] + [info.cmpnfo[0].bcv]
+        lo, hi = S * rank // nproc, S * (rank + 1) // nproc
+        with timing.span("multihost.encode", "encode_s"):
+            if engine == "device":
+                # symbolization covers the whole plane; assembly and the
+                # coder run only this process's lanes
+                with on_device(dev):
+                    local = batch_encode.encode_images_device(
+                        [api._describe(info, dec, splits)], 1, device=dev,
+                        segment_range=[(lo, hi)])[0]
+            else:
+                mh, cs = host._truncation_geometry(info, dec)
+                if host._segment_codec_is_native():
+                    enc = host._native_image(info, dec.planes, mh,
+                                             cs).encode_segment
+                else:
+                    enc = partial(encode_segment, host._python_image(
+                        info, dec.planes, mh, cs))
+                local = [enc(bounds[i], bounds[i + 1], i == S - 1)
+                         for i in range(lo, hi)]
+        with timing.span("multihost.gather", "gather_s"):
+            streams = gather_streams_to_host0(local)
+    stats.update(rank=rank, world=nproc, lanes=hi - lo)
 
     # the header of compress_device's containers: mode Z (the scan decode
     # above takes baseline JPEGs only), version 1 (multihost.py:162)

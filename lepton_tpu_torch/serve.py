@@ -40,6 +40,8 @@ import sys
 import time
 import zlib
 
+from .util import timing
+
 ROUTES = ("mode_y", "encode_batch_failed", "verify_failed", "decode_failed",
           "host_kind")
 # requests answered by the host path since the server started, by reason
@@ -185,9 +187,11 @@ def _process_tpu_batch(reqs, opts, wave: dict) -> None:
         if outs is not None:
             out = outs[i]
             if opts.get("verify", True):
-                t = time.perf_counter()
-                ok = _roundtrips(out, r[2])
-                wave["verify_s"] += time.perf_counter() - t
+                # the host decoder's own spans write to no call (part({}))
+                with timing.part(wave), \
+                        timing.span("serve.verify", "verify_s"), \
+                        timing.part({}):
+                    ok = _roundtrips(out, r[2])
                 wave["verified"] += 1
                 if not ok:
                     _route(wave, "verify_failed")
@@ -292,7 +296,7 @@ def _wave_loop(socks, opts, term=None) -> int:
         return data
 
     pending = []
-    read_s = 0.0
+    reads = {}      # read_s of the requests that wait for a wave
     while True:
         # accept everything currently queued; block only when idle
         try:
@@ -308,9 +312,9 @@ def _wave_loop(socks, opts, term=None) -> int:
                     conn, _ = s.accept()
                 except OSError:
                     continue
-                t = time.perf_counter()
-                pending.append([conn, zw, read_request(conn, zw), b""])
-                read_s += time.perf_counter() - t
+                with timing.part(reads), \
+                        timing.span("serve.read", "read_s"):
+                    pending.append([conn, zw, read_request(conn, zw), b""])
             try:
                 ready, _, _ = select.select([s for s, _ in socks], [], [],
                                             0.005)
@@ -321,30 +325,30 @@ def _wave_loop(socks, opts, term=None) -> int:
         reqs = pending[:wave_n]
         del pending[:wave_n]
         wave = new_wave()
-        wave["read_s"], read_s = read_s, 0.0
-        t0 = time.perf_counter()
-        try:
-            on_card(lambda: _process_tpu_batch(reqs, opts, wave))
-        except CardFault as e:
-            for conn, *_ in reqs + pending:
-                conn.close()
-            return card_fault_exit(e, "tpu serving stopped: ")
-        wave["transcode_s"] = time.perf_counter() - t0
-        term["defer"] = True
-        t = time.perf_counter()
-        for conn, zw, _, out in reqs:
-            if zw and out:
-                # failures stay zero-byte on the zlib port too: an empty
-                # reply is the failure contract, zlib.compress(b"") isn't
-                out = zlib.compress(out)
+        wave["read_s"] = reads.pop("read_s", 0.0)
+        with timing.part(wave), timing.span("serve.wave", "wall_s"):
             try:
-                conn.sendall(out)
-                conn.shutdown(socket.SHUT_WR)
-            except OSError:
-                pass
-            conn.close()
-        wave["reply_s"] = time.perf_counter() - t
-        wave["wall_s"] = time.perf_counter() - t0 + wave["read_s"]
+                with timing.span("serve.transcode", "transcode_s"):
+                    on_card(lambda: _process_tpu_batch(reqs, opts, wave))
+            except CardFault as e:
+                for conn, *_ in reqs + pending:
+                    conn.close()
+                return card_fault_exit(e, "tpu serving stopped: ")
+            term["defer"] = True
+            with timing.span("serve.reply", "reply_s"):
+                for conn, zw, _, out in reqs:
+                    if zw and out:
+                        # failures stay zero-byte on the zlib port too: an
+                        # empty reply is the failure contract,
+                        # zlib.compress(b"") isn't
+                        out = zlib.compress(out)
+                    try:
+                        conn.sendall(out)
+                        conn.shutdown(socket.SHUT_WR)
+                    except OSError:
+                        pass
+                    conn.close()
+        wave["wall_s"] += wave["read_s"]
         # observable wave fill (the wave size is THE serving-efficiency
         # statistic here), then the wave's record as one JSON object
         sys.stderr.write(

@@ -4,8 +4,9 @@ Equivalent of decompression_memory_bound (reference jpgcoder.cc:1236-1330):
 computes the exact buffer footprint a decode will need so callers can
 enforce a declared memory envelope (-recodememory=).
 
-Copy of lepton_tpu/util/membound.py (66 lines); the host decode it bounds
-is host.decompress_streaming and host.decompress, the same C codec.
+Copy of lepton_tpu/util/membound.py but for its unused check_memory_bound;
+the host decode it bounds is host.decompress_streaming and
+host.decompress, the same C codec.
 """
 from __future__ import annotations
 
@@ -59,9 +60,3 @@ def decompression_memory_bound(info, num_threads: int,
     # block (~1MB), allocator metadata/fragmentation slack (~2MB)
     fixed = 6 << 20
     return planes + models + rings + streams + output + fixed
-
-
-def check_memory_bound(info, num_threads: int, original_size: int,
-                       limit_bytes: int) -> bool:
-    return decompression_memory_bound(
-        info, num_threads, original_size) <= limit_bytes

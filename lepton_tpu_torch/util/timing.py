@@ -7,15 +7,15 @@ it at exit; this is that matrix, plus a span summary derived from
 flag (cli); survives the jail (pure userspace clock reads).
 
 The matrix and print_timing are a copy of lepton_tpu/util/timing.py.  The
-port adds the spans of its device paths: call() opens a device entry
-point's call (its stats dict and a call id, in a context variable),
-span() times one stage of it, and in_call() carries the call onto a pool
-thread.  One span adds its seconds to a key of the call's stats, marks
-NAME_BEGIN/NAME_END (and a reference stage's _STARTED/_FINISHED) for
--timing=, and, while torch.profiler records, opens a record_function range
-"lepton:NAME" on the profiler's timeline.  This
-module imports no torch: it reads the profiler's flag through
-sys.modules, so the host path never loads it.
+port adds the one carrier of a device call's stage times, the open call (a
+context variable): call() opens an entry point's call, part() a part of it
+with a dict of its own, in_call() carries it onto a pool thread.  span()
+adds a stage's seconds to a key of the call's stats, add() a count,
+timed() a launch's CUDA-event ms; outside a call they write nothing.  A
+span also marks NAME_BEGIN/NAME_END (and a reference stage's
+_STARTED/_FINISHED) for -timing=, and, while torch.profiler records, opens
+a record_function range "lepton:NAME".  No torch import: the profiler and
+CUDA events are read through sys.modules, so the host path never loads it.
 """
 from __future__ import annotations
 
@@ -70,21 +70,6 @@ def mark(stage: str, thread: int = 0) -> None:
         _events.append((stage, now))
 
 
-class stage:
-    """Context manager marking STAGE_BEGIN/STAGE_END edges."""
-
-    def __init__(self, name: str):
-        self.name = name
-
-    def __enter__(self):
-        mark(self.name + "_BEGIN")
-        return self
-
-    def __exit__(self, *exc):
-        mark(self.name + "_END")
-        return False
-
-
 def print_timing(file=None) -> None:
     """Reference print_results format: STAGE (thread) seconds-from-
     first, per populated cell, followed by the span summary."""
@@ -135,7 +120,8 @@ def restore(snap) -> None:
     _events[:] = events
 
 
-# the open call of this context: (its stats dict, its call id)
+# the open call of this context: (its stats dict, its call id, its deferred
+# CUDA events)
 _call: contextvars.ContextVar = contextvars.ContextVar("lepton_call",
                                                        default=None)
 _call_ids = itertools.count(1)
@@ -154,14 +140,11 @@ def _recording():
     return _profiler if _profiler._is_profiler_enabled else None
 
 
-def add(key: str, value, stats: Optional[dict] = None) -> None:
-    """Add value to stats[key] (default: the open call's stats; nothing
-    outside a call)."""
+def add(key: str, value) -> None:
+    """Add value to the open call's stats[key] (nothing outside a call)."""
     c = _call.get()
-    if stats is None and c is not None:
-        stats = c[0]
-    if stats is not None:
-        stats[key] = stats.get(key, 0) + value
+    if c is not None:
+        c[0][key] = c[0].get(key, 0) + value
 
 
 def in_call(fn):
@@ -174,7 +157,7 @@ def in_call(fn):
 
     def run(*args):
         own = {}
-        token = _call.set(None if c is None else (own, c[1]))
+        token = _call.set(None if c is None else (own, c[1], []))
         try:
             return fn(*args), None, own
         except Exception as e:
@@ -184,11 +167,53 @@ def in_call(fn):
     return run
 
 
+def timed(fn, dev, key: str, host: bool = False, name: Optional[str] = None,
+          defer: bool = False):
+    """fn(), with its time in ms added to the open call's stats[key]: by
+    CUDA events around it on a CUDA device, then a wait for the end event;
+    off the card by the host clock where host is True, else not at all.
+    Outside a call fn() alone, with no event.  defer: the events are kept
+    with the call in place of the wait, and settle() adds their time once
+    the caller has synchronised.  name: a span around fn."""
+    if name is not None:
+        with span(name):
+            return timed(fn, dev, key, host, defer=defer)
+    c = _call.get()
+    if c is None or (dev.type != "cuda" and not host):
+        return fn()
+    if dev.type != "cuda":
+        t = time.perf_counter()
+        r = fn()
+        add(key, (time.perf_counter() - t) * 1e3)
+        return r
+    cuda = sys.modules["torch"].cuda
+    start = cuda.Event(enable_timing=True)
+    end = cuda.Event(enable_timing=True)
+    start.record()
+    r = fn()
+    end.record()
+    if defer:
+        c[2].append((key, start, end))
+    else:
+        end.synchronize()
+        add(key, start.elapsed_time(end))
+    return r
+
+
+def settle() -> None:
+    """Add the time of the open call's deferred events (timed) to its
+    stats, by key; their work must have ended."""
+    c = _call.get()
+    if c is not None:
+        for key, start, end in c[2]:
+            add(key, start.elapsed_time(end))
+        c[2].clear()
+
 
 class span:
     """One stage on the thread that opens it: adds its host-clock seconds
-    to stats[key] (stats: default the open call's; no key or no call, no
-    write), marks NAME_BEGIN/NAME_END and the reference stage's
+    to the open call's stats[key] (no key or no call, no write), marks
+    NAME_BEGIN/NAME_END and the reference stage's
     STAGE_STARTED/STAGE_FINISHED under -timing=, and while torch.profiler
     records opens record_function("lepton:" + name) with the args
     "call=<id>" and "image=<i>".  Under -timing= a span with `args`
@@ -201,17 +226,16 @@ class span:
 
     def __init__(self, name: str, key: Optional[str] = None,
                  stage: Optional[str] = None, image: Optional[int] = None,
-                 stats: Optional[dict] = None, args: Optional[str] = None):
+                 args: Optional[str] = None):
         self.name, self.key, self.stage = name, key, stage
-        self.image, self.stats, self.args, self._rf = image, stats, args, None
+        self.image, self.args, self._rf = image, args, None
 
     def _label(self) -> str:
         return f"{self.name} {self.args}" if self.args else self.name
 
     def __enter__(self):
         c = _call.get()
-        if self.stats is None and c is not None:
-            self.stats = c[0]
+        self.stats = None if c is None else c[0]
         if _enabled:
             mark(self._label() + "_BEGIN")
             if self.stage:
@@ -241,19 +265,40 @@ class span:
         return False
 
 
-class call:
+class part:
+    """A part of the call open on this thread (of a new call where none
+    is open) whose spans, counters and clocks write into `stats`; it opens
+    no span.  A mesh's device thread opens one with its own dict, and so
+    does a caller that times a stage below the entry points."""
+
+    __slots__ = ("stats", "id", "_token")
+
+    def __init__(self, stats: dict):
+        c = _call.get()
+        self.stats, self.id = stats, next(_call_ids) if c is None else c[1]
+
+    def __enter__(self):
+        self._token = _call.set((self.stats, self.id, []))
+        return self
+
+    def __exit__(self, *exc):
+        _call.reset(self._token)
+        return False
+
+
+class call(part):
     """A device entry point's call: its stats dict and a new call id for
     the spans inside it (on this thread and in this context), under the
     span entry.<entry>."""
 
-    __slots__ = ("_span", "_token", "stats", "id")
+    __slots__ = ("_span",)
 
     def __init__(self, stats: dict, entry: str):
         self.stats, self.id = stats, next(_call_ids)
         self._span = span("entry." + entry)
 
     def __enter__(self):
-        self._token = _call.set((self.stats, self.id))
+        super().__enter__()
         self._span.__enter__()
         return self
 
@@ -261,5 +306,5 @@ class call:
         try:
             self._span.__exit__(*exc)
         finally:
-            _call.reset(self._token)
+            super().__exit__(*exc)
         return False

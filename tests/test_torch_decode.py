@@ -22,7 +22,7 @@ from lepton_tpu.jpeg.recoder import recode_baseline_jpeg as jrecode  # noqa: E40
 from lepton_tpu.kernels.pallas_decode import (  # noqa: E402
     decode_segments_pallas, decode_segments_pallas_multi)
 from lepton_tpu.kernels.vpx_decode import decode_segments_tpu  # noqa: E402
-from lepton_tpu_torch import api  # noqa: E402
+from lepton_tpu_torch import api, host  # noqa: E402
 from lepton_tpu_torch.container.format import read_container  # noqa: E402
 from lepton_tpu_torch.container.mux import MuxReader  # noqa: E402
 from lepton_tpu_torch.jpeg.imageinfo import image_info_from_header  # noqa: E402,E501
@@ -122,7 +122,7 @@ def test_template_start_matches_jax(synth_model, monkeypatch):
     data = _jpeg(32, 24, seed=11, quality=85, subsampling=2)
     lep = japi.compress(data, max_threads=2, min_threads=2)
     tpl = japi._model_template_packed()
-    assert np.array_equal(tpl, api._model_template_packed())
+    assert np.array_equal(tpl, host._model_template_packed())
     req, jreq = _request(lep)
     (planes, err), = _decode([req], tpl)
     want, _ = decode_segments_tpu(*_jargs(jreq), color_index=_ci,

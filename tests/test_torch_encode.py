@@ -24,7 +24,7 @@ from lepton_tpu.jpeg.imageinfo import image_info_from_header as jinfo  # noqa: E
 from lepton_tpu.jpeg.parser import parse_jpeg as jparse  # noqa: E402
 from lepton_tpu.kernels import batch_encode as jbatch  # noqa: E402
 from lepton_tpu.model.context import ColorTables as JColorTables  # noqa: E402
-from lepton_tpu_torch import api  # noqa: E402
+from lepton_tpu_torch import api, host  # noqa: E402
 from lepton_tpu_torch.container.handoff import (choose_num_threads,  # noqa: E402,E501
                                                 select_splits)
 from lepton_tpu_torch.jpeg.decoder import decode_scans  # noqa: E402
@@ -61,7 +61,7 @@ def _port_with_segments(data: bytes, k: int, version: int = 1,
     splits = select_splits(h, nt)
     streams = batch_encode.encode_images_device(
         [api._describe(info, dec, splits)], version,
-        template=api._model_template_packed(), device="cpu")[0]
+        template=host._model_template_packed(), device="cpu")[0]
     return api._container(parsed, dec, splits, nt, streams, version)
 
 

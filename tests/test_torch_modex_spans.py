@@ -14,9 +14,9 @@ from benchmark.calls import Request
 from benchmark.fixtures import make_photo
 from benchmark.reference.encode import expected_lep
 from benchmark.run import Run
-from lepton_tpu_torch import api, host
+from lepton_tpu_torch import api
 from lepton_tpu_torch.jpeg import recode_progressive
-from lepton_tpu_torch.util import timing
+from lepton_tpu_torch.util import pool, timing
 
 SIZES = ((48, 32), (40, 48), (56, 24))
 PHOTOS = [make_photo([20, k], w, h, progressive=True)
@@ -115,7 +115,7 @@ def test_modex_decode_counts_and_labels_scans(leps, monkeypatch, workers):
     re-emit at once on the host pool (api._reemit_modex), so their scans'
     labels come in any order of requests and the native seconds, summed
     over the threads, lie within the wall on each thread."""
-    monkeypatch.setattr(host, "_MAX_WORKERS", workers)
+    monkeypatch.setattr(pool, "_MAX_WORKERS", workers)
     rec = _Recorder()
     monkeypatch.setattr(torch.autograd.profiler, "record_function", rec)
     monkeypatch.setattr(timing, "_enabled", True)

@@ -33,6 +33,7 @@ from lepton_tpu_torch import api  # noqa: E402
 from lepton_tpu_torch.kernels import batch_encode, cuda_build, vpx_decoder  # noqa: E402,E501
 from lepton_tpu_torch.parallel import mesh as M  # noqa: E402
 from lepton_tpu_torch.parallel import multihost as MH  # noqa: E402
+from lepton_tpu_torch.util import timing  # noqa: E402
 from test_torch_encode import _jpeg  # noqa: E402
 
 import chip_smoke  # noqa: E402
@@ -133,9 +134,10 @@ def test_segment_range_streams(four_segments, lo, hi, version):
     codes nothing."""
     desc, whole = four_segments
     stats = {}
-    got = batch_encode.encode_images_device([desc], version, device="cpu",
-                                            stats=stats,
-                                            segment_range=[(lo, hi)])
+    with timing.part(stats):
+        got = batch_encode.encode_images_device([desc], version,
+                                                device="cpu",
+                                                segment_range=[(lo, hi)])
     assert got == [whole[version][lo:hi]]
     assert stats.get("lanes", 0) == hi - lo
 

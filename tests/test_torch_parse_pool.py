@@ -1,8 +1,8 @@
 """The batch encode's parse on the host pool (api._parse_images): the
-concurrent route against the serial one (host._MAX_WORKERS = 1), which is
-the route of a one-image batch, a one-CPU host and a jailed parse; the
-error of the first failing image; the stats of a call carried onto pool
-threads (timing.in_call).  Inputs are PIL-made JPEGs;
+concurrent route against the pool's one-worker case (pool._MAX_WORKERS =
+1), which is that of a one-image batch, a one-CPU host and a jailed
+parse; the error of the first failing image; the stats of a call carried
+onto pool threads (timing.in_call).  Inputs are PIL-made JPEGs;
 device="cpu" runs the plain versions."""
 import io
 import sys
@@ -13,7 +13,7 @@ import pytest
 from PIL import Image
 
 from lepton_tpu_torch import api, host
-from lepton_tpu_torch.util import timing
+from lepton_tpu_torch.util import pool, timing
 
 
 def _jpeg(w: int, h: int, seed: int) -> bytes:
@@ -33,7 +33,7 @@ BLOBS = [_jpeg(32, 16, 1), _jpeg(16, 32, 2), _jpeg(24, 24, 3),
 
 def _encode(monkeypatch, workers, blobs, **kw):
     """(.lep bytes, stats) of one batch encode with the pool's size set."""
-    monkeypatch.setattr(host, "_MAX_WORKERS", workers)
+    monkeypatch.setattr(pool, "_MAX_WORKERS", workers)
     stats = {}
     return api.batch_compress_device(blobs, 2, "cpu", stats, **kw), stats
 
@@ -104,7 +104,7 @@ def test_pool_parse_overlaps_its_images(monkeypatch):
     call's stats once (parse_image_s holds its huffman_s), and the summed
     image seconds are at least the parse's wall over the threads."""
     blobs = [_jpeg(512, 384, s) for s in range(4)]
-    monkeypatch.setattr(host, "_MAX_WORKERS", 4)
+    monkeypatch.setattr(pool, "_MAX_WORKERS", 4)
     st = {}
     with timing.call(st, "encode"):
         with timing.span("parse", "parse_s"):

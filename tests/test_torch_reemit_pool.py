@@ -1,10 +1,10 @@
 """The batch decode's mode-X re-emit on the host pool (api._reemit_modex):
-the concurrent route against the serial one (host._MAX_WORKERS = 1),
-which is the route of a one-request batch and a one-CPU host; mode-Z
-requests on the calling thread in a mixed batch; the error of the first
-failing request, or each its own with per_request; the stats that the
-pool's jobs add to the call.  Inputs are PIL-made progressive JPEGs;
-device="cpu" runs the plain versions."""
+the concurrent route against the pool's one-worker case
+(pool._MAX_WORKERS = 1), which is that of a one-request batch and a
+one-CPU host; mode-Z requests on the calling thread in a mixed batch; the
+error of the first failing request, or each its own with per_request;
+the stats that the pool's jobs add to the call.  Inputs are PIL-made
+progressive JPEGs; device="cpu" runs the plain versions."""
 import io
 import threading
 
@@ -14,7 +14,7 @@ from PIL import Image
 
 from lepton_tpu_torch import api, host
 from lepton_tpu_torch.kernels import vpx_decoder
-from lepton_tpu_torch.util import timing
+from lepton_tpu_torch.util import pool, timing
 
 
 def _jpeg(w: int, h: int, seed: int, progressive: bool = True) -> bytes:
@@ -47,7 +47,7 @@ def leps():
 
 def _decode(monkeypatch, workers, batch, **kw):
     """(JPEGs, stats) of one batch decode with the pool's size set."""
-    monkeypatch.setattr(host, "_MAX_WORKERS", workers)
+    monkeypatch.setattr(pool, "_MAX_WORKERS", workers)
     stats = {}
     return api.batch_decompress_device(batch, "cpu", stats, **kw), stats
 
@@ -159,7 +159,7 @@ def test_pooled_requests_overlap(monkeypatch):
             for i, b in enumerate(blobs)]
     planes = [(api._parse(b, True, False)[2].planes, np.zeros(1, bool))
               for b in blobs]
-    monkeypatch.setattr(host, "_MAX_WORKERS", 4)
+    monkeypatch.setattr(pool, "_MAX_WORKERS", 4)
     monkeypatch.setattr(timing, "_enabled", True)
     timing.reset()
     st = {}

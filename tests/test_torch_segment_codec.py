@@ -35,7 +35,7 @@ from lepton_tpu_torch.container.handoff import (  # noqa: E402
     choose_num_threads, select_splits)
 from lepton_tpu_torch.model import branch, context  # noqa: E402
 from lepton_tpu_torch.parallel import multihost as MH  # noqa: E402
-from lepton_tpu_torch.util import billing  # noqa: E402
+from lepton_tpu_torch.util import billing, timing  # noqa: E402
 from test_torch_encode import _jpeg  # noqa: E402
 
 
@@ -343,7 +343,8 @@ def test_symbol_lanes_frame_as_jax():
     assert np.array_equal(idx.numpy(), want_idx)
     assert np.array_equal(bit.numpy(), want_bit)
     stats = {}
-    idx, bit = batch_encode.symbol_lanes(segs, False, "cpu", stats)
+    with timing.part(stats):
+        idx, bit = batch_encode.symbol_lanes(segs, False, "cpu")
     assert idx.shape == (4, 90) and stats["symbols"] == 124
     for (i, b), li, lb in zip(segs, idx.numpy(), bit.numpy()):
         assert np.array_equal(li[:len(i)], i) and (li[len(i):] == -1).all()

@@ -15,7 +15,7 @@ import pytest
 jax = pytest.importorskip("jax")
 
 import lepton_tpu.api as japi  # noqa: E402
-from lepton_tpu_torch import api  # noqa: E402
+from lepton_tpu_torch import api, host  # noqa: E402
 from lepton_tpu_torch.container.handoff import (choose_num_threads,  # noqa: E402,E501
                                                 select_splits)
 from lepton_tpu_torch.kernels import batch_encode  # noqa: E402
@@ -31,7 +31,7 @@ def _port_in_segments(data: bytes, k: int, version: int) -> bytes:
     splits = select_splits(h, nt)
     streams = batch_encode.encode_images_device(
         [api._describe(info, dec, splits)], version,
-        template=api._model_template_packed(), device="cpu")[0]
+        template=host._model_template_packed(), device="cpu")[0]
     return api._container(parsed, dec, splits, nt, streams, version)
 
 
